@@ -1,4 +1,5 @@
-"""doa_mpc_tpu — a TPU-native dynamic-obstacle-avoidance nonlinear-MPC framework.
+"""doa_mpc_tpu — a batched, GPU-accelerated dynamic-obstacle-avoidance nonlinear-MPC
+framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 abdelhakim96/Dynamic-Obstacle-Avoidance-MPC (reference mounted at

@@ -1,6 +1,6 @@
 """Unicycle robot model and obstacle-distance constraints.
 
-TPU-native replacement for the CasADi symbolic model of
+JAX replacement for the CasADi symbolic model of
 ``/root/reference/src/models/robot_model.py:8-67``: instead of building an SX
 graph and C-code-generating it through acados, the dynamics are a plain JAX
 function; Jacobians/sensitivities come from ``jax.jacfwd`` at trace time and

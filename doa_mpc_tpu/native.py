@@ -1,7 +1,8 @@
 """ctypes bindings for the native CPU OCP core (``native/ocp_core.cpp``).
 
-Loads (building on demand if needed) the dependency-free C++ library that
-mirrors the reference's acados-C tier:
+Loads the dependency-free C++ library that mirrors the reference's acados-C
+tier, building it from ``native/ocp_core.cpp`` into ``native/build/`` on
+first use (``make -C native`` does the same by hand):
 
 - ``ip_solve`` — the FULL production QP (box constraints + L1/L2-slacked
   obstacle constraints, robot_ocp_problem.py:106-122) solved by the same
@@ -17,6 +18,7 @@ mirrors the reference's acados-C tier:
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -24,17 +26,39 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libocp_core.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "ocp_core.cpp")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libocp_core.so")
 _lib = None
+
+
+def _build():
+    """Compile the library unless an up-to-date one exists.
+
+    Several processes (pytest-xdist workers) may ask at once: the build
+    runs under an exclusive file lock and writes a temporary file that is
+    renamed into place, so no process ever loads a half-written library.
+    """
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    with open(_LIB_PATH + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH)
+                >= os.path.getmtime(_SRC_PATH)):
+            return
+        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["make", "-C", _NATIVE_DIR, f"OUT={tmp}"],
+                           check=True, capture_output=True)
+            os.replace(tmp, _LIB_PATH)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
+    _build()
     lib = ctypes.CDLL(_LIB_PATH)
     dp = ctypes.POINTER(ctypes.c_double)
     lib.ocp_riccati_solve.restype = ctypes.c_int
@@ -61,10 +85,12 @@ def _load():
 
 
 def available() -> bool:
+    """True if the library builds (a C++ compiler and make are present)
+    and loads."""
     try:
         _load()
         return True
-    except Exception:
+    except (OSError, subprocess.CalledProcessError):
         return False
 
 

@@ -1,46 +1,40 @@
-"""Fully-fused Pallas TPU kernel: the ENTIRE interior-point solve per launch.
+"""Whole interior-point solve in one GPU kernel (Pallas, Triton route).
 
-The batch-native XLA interior-point loop (``ops/ip_qp.py``) spends ~6 ms per
-iteration on ~400 tiny elementwise kernel dispatches. The first fused design
-(one kernel launch per IP iteration, kept in git history) removed the
-dispatch overhead but still round-tripped the full IP state through HBM
-every iteration and — because every stage loop was Python-unrolled — its
-compile time and live-register stack grew with the horizon, which capped it
-at N<=28 / M<=6 on a 16 MB-VMEM core (TPU v5e).
-
-This kernel goes the rest of the way: ONE launch per batch tile runs
-initialization plus ALL Mehrotra iterations — residuals, barrier sigmas,
+The batch-native XLA interior point (``ops/ip_qp.py``) runs each IP
+iteration as three Riccati sweeps, each a ``lax.scan`` over the horizon
+whose stage bodies are a handful of tiny batched kernels. On a GPU that is
+on the order of 10^3 dependent small launches per control tick whatever
+the batch. This kernel runs initialization plus ALL Mehrotra iterations
+for a block of scenarios in one program: residuals, barrier sigmas,
 condensed stage Hessians, Riccati factorization (shared by predictor and
 corrector), predictor back-substitution + recovery, affine step lengths +
 centering, corrector back-substitution + recovery, fraction-to-boundary and
-the masked state update. Consequences:
+the masked state update.
 
-- QP data is read from HBM once per tile (not once per iteration) and the
-  IP state never leaves VMEM — per-solve HBM traffic drops ~20x.
-- Every loop over stages or iterations is a ``lax.fori_loop``, so compiled
-  code size and the live SSA set are O(1) in the horizon; N=40/M=8 (the
-  reference's largest sweep point, ``run_multiple_experiments.py:5``)
-  compiles in seconds and fits VMEM.
-- The per-stage small-matrix algebra (nx=5, nu=2) stays Python-unrolled
-  into elementwise VPU ops — that part is O(stage-size), not O(horizon).
+Execution model (``pl.pallas_call(..., backend="triton")``):
 
-Layout: batch-last ("batch-major lanes"), as in ``ops/riccati_pallas.py`` —
-operands are ``(stages, packed_width, B)`` with the batch on the lane axis;
-every matrix element is one ``(TILE,)`` vector and all per-scenario
-reductions (duality measure, step lengths) are lane-wise — no cross-lane
-traffic. All per-stage quantities are packed along the sublane axis via
-explicit field layouts (``_Layout``) so nothing pays per-array 8-sublane
-padding; that packing is what fits N=40/M=8 in 16 MB.
+- The grid runs over blocks of ``_BLOCK`` scenarios; each program owns one
+  block and each matrix element is one ``(_BLOCK,)`` vector, one scenario
+  per thread. Every per-scenario reduction (duality measure, step lengths)
+  is lane-wise, so programs never communicate.
+- Arrays are batch-last, ``(stages, field, B)``: element ``[k, i]`` of a
+  block is a contiguous, coalesced ``_BLOCK``-float load.
+- Every loop over stages or iterations is a ``lax.fori_loop`` (lowered to
+  ``scf.for``), so code size is O(1) in the horizon; the per-stage
+  small-matrix algebra (nx=5, nu=2) is unrolled at trace time.
+- The Triton route has no scratch memory, so the IP state and the
+  factorization work arrays are extra kernel outputs in device memory that
+  the wrapper drops. Each thread reads back only the elements it wrote
+  (``_BLOCK == 32 * _NUM_WARPS``: one element per thread), so no barrier
+  is needed between the passes.
 
 Semantics track ``ops/ip_qp.solve_ocp_qp`` (same initialization,
-eliminations, safeguards, masked convergence freeze); the equivalence test
-runs both at f32. One intentional algebraic reassociation: the predictor's
+eliminations, safeguards, masked convergence freeze); the equivalence tests
+run both at f32. One intentional algebraic reassociation: the predictor's
 ``mu_aff`` is accumulated as  sum(t*l) + ap*S1 + ad*S2 + ap*ad*S3  with
 S1=sum(dt*l), S2=sum(t*dl), S3=sum(dt*dl) collected during the affine
 recovery pass — exactly equal in real arithmetic to the XLA solver's
-post-step sum, differing only in f32 rounding. Only the elementwise
-products dt*dl (needed by the corrector betas) are stored, halving the
-affine scratch.
+post-step sum, differing only in rounding.
 """
 
 from __future__ import annotations
@@ -51,10 +45,16 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from doa_mpc_tpu.ops.ocp_qp import IDXBX, OcpQp, normalize_cost
-from doa_mpc_tpu.ops.riccati_pallas import _round_up
+
+# Scenarios per program and warps per program. One scenario per thread
+# (_BLOCK == 32 * _NUM_WARPS) keeps every element of every (_BLOCK,) vector
+# on the thread that stores and reloads it. Chosen by the sweep recorded in
+# CHANGES.md.
+_NUM_WARPS = 1
+_BLOCK = 32 * _NUM_WARPS
 
 _T_FLOOR = 1e-12
 _ZL_FLOOR = 1e-6
@@ -66,7 +66,7 @@ _ZL_FLOOR = 1e-6
 
 class QpStructure(NamedTuple):
     """Static structure guarantees about the QP data, exploited at trace
-    time: structurally-zero/unit entries are never packed, DMA'd, or
+    time: structurally-zero/unit entries are never packed, loaded, or
     multiplied — the kernel's small-matrix algebra folds them away via the
     symbolic-zero helpers below. One kernel body serves every structure.
 
@@ -95,7 +95,7 @@ GENERIC_STRUCTURE = QpStructure()
 # ---------------------------------------------------------------------------
 # symbolic-zero small-matrix algebra
 #
-# Entries are either traced (sb, 128) vectors or Python floats standing for
+# Entries are either traced (_BLOCK,) vectors or Python floats standing for
 # compile-time constants (0.0 / 1.0 from the declared structure). Zero and
 # unit terms vanish at trace time, so the same kernel algebra specializes
 # itself to whatever structure the caller declared.
@@ -172,11 +172,11 @@ def _vadd(x, y):
 
 
 # ---------------------------------------------------------------------------
-# packed sublane layouts
+# packed field layouts
 # ---------------------------------------------------------------------------
 
 class _Layout:
-    """Field name -> sublane offset map for one packed (stages, W, B) array."""
+    """Field name -> offset map for one packed (stages, W, B) array."""
 
     def __init__(self, *fields):
         self.o = {}
@@ -188,24 +188,18 @@ class _Layout:
 
 
 def _layouts(nx, nu, M, nbx, st=None):
-    """Packed-field layouts.
-
-    Round-4 footprint design (each item cuts VMEM with zero precision loss;
-    together they fit ``sublane_batch=8`` at N=20/M=5 in ~14.4 MB):
+    """Packed-field layouts of the QP data and the factorization work array.
 
     - QP data is split into an (N+1)-stage array (cost/constraint fields)
-      and an N-stage array (dynamics/control fields) so N-stage fields no
-      longer pay an extra padded stage, and ``dx0`` is its own tiny input
-      instead of a full stage-width column.
+      and an N-stage array (dynamics/control fields), and ``dx0`` is its
+      own single-stage input.
     - The Riccati value matrix P is stored as its upper triangle
       (nx*(nx+1)/2 instead of nx^2) — it is symmetric by construction.
-    - Only the stationarity residual ``rx`` is stored; every other residual
-      (box/soft/control) is stage-local in the state and recomputed on use
-      (a handful of VPU ops against a ~2 MB scratch array).
-    - The affine pass stores the affine (dx, du) per stage ("ax"/"au");
-      the corrector's dt*dl pair products are recomputed from them via the
-      exact same delta formulas, which is bit-identical to storing the
-      products (same operands, same ops) at a third of the width.
+    - Only the stationarity residual ``rx`` is stored (its own array);
+      every other residual (box/soft/control) is stage-local and
+      recomputed on use.
+    - The affine pass stores the dt*dl product of every complementarity
+      pair per stage; the corrector's right-hand sides read them back.
     """
     st = st or GENERIC_STRUCTURE
     ntri = nu * (nu + 1) // 2
@@ -226,41 +220,23 @@ def _layouts(nx, nu, M, nbx, st=None):
     qpu = _Layout(*ufields)
     ric = _Layout(("P", nx * (nx + 1) // 2), ("K", nu * nx), ("L", ntri),
                   ("kff", nu), ("pn", nx))
-    res = _Layout(("rx", nx))
-    aff = _Layout(("ax", nx), ("au", nu))
-    return qpx, qpu, ric, res, aff
+    aff = _Layout(("ph", M), ("ps", M), ("pxl", nbx), ("pxu", nbx),
+                  ("pul", nu), ("puu", nu))
+    return qpx, qpu, ric, aff
 
 
-def _pad8(w):
-    return -(-w // 8) * 8
-
-
-def fused_vmem_bytes(N, M, nx=5, nu=2, nbx=None, tile=128, sb=1,
-                     itemsize=4, structure=None):
-    """Estimate of the kernel's VMEM footprint.
-
-    Used by callers to decide whether the fused backend (at a given
-    sublane-batch factor ``sb``) fits the ~16 MB VMEM of one TPU core
-    before paying a compile.
-    """
+def kernel_bytes(N, M, nx=5, nu=2, nbx=None, itemsize=4, structure=None):
+    """Device-memory bytes one scenario's solve reads or writes at least
+    once: packed QP inputs, the dx/du/s/mu/stat results, and the IP state
+    and work arrays the kernel keeps as extra outputs."""
     nbx = len(IDXBX) if nbx is None else nbx
-    qpx, qpu, ric, res, aff = _layouts(nx, nu, M, nbx, structure)
+    qpx, qpu, ric, aff = _layouts(nx, nu, M, nbx, structure)
     st = N + 1
-
-    def p(w):
-        return _pad8(w * sb)
-
-    # QP data is DMA'd once per tile into single VMEM scratch copies (no
-    # pipelined double-buffering); dx/du/s outputs are DMA'd straight from
-    # the state scratch (no output blocks); corrector deltas are recomputed
-    # in the apply pass, so there is no corrector scratch.
-    inp = st * p(qpx.width) + N * p(qpu.width) + p(nx)
-    outs = 2 * 2 * p(1)                         # mu/stat blocks only
-    state = (st * (p(nx) + 4 * p(M) + 4 * p(nbx))
-             + N * (5 * p(nu) + p(nx)))
-    work = (N * p(ric.width)
-            + st * (p(res.width) + p(aff.width)))
-    return (inp + outs + state + work) * tile * itemsize
+    inputs = st * qpx.width + N * qpu.width + nx
+    results = st * nx + N * nu + st * M + 2
+    state = N * (nx + 4 * nu) + st * (4 * nbx + 3 * M)
+    work = N * ric.width + st * (nx + aff.width)
+    return (inputs + results + state + work) * itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -312,34 +288,6 @@ def _lsym(ref, k, off, n):
 
 
 
-class _R:
-    """Sublane-batched ref view: element (k, i) is an (sb, 128) block.
-
-    With sb = 1 this is a transparent pass-through (values are (128,) lane
-    vectors). With sb > 1, each logical field element occupies ``sb``
-    consecutive sublanes, so every elementwise op moves sb x 128 scenarios
-    per instruction — sb/8 of the VPU instead of 1/8 — at sb x the VMEM.
-    """
-
-    __slots__ = ("ref", "s")
-
-    def __init__(self, ref, s):
-        self.ref = ref
-        self.s = s
-
-    def __getitem__(self, ix):
-        k, i = ix
-        if self.s == 1:
-            return self.ref[k, i]
-        return self.ref[k, i * self.s:(i + 1) * self.s]
-
-    def __setitem__(self, ix, val):
-        k, i = ix
-        if self.s == 1:
-            self.ref[k, i] = val
-        else:
-            self.ref[k, i * self.s:(i + 1) * self.s] = val
-
 
 def _chol_small(H, reg):
     """Cholesky of a batched small SPD matrix (list-of-lists) -> flat lower
@@ -381,73 +329,33 @@ def _chol_solve_small(Lf, b):
 
 
 
-def _uloop(n, body, carry, su, reverse=False):
-    """Partially-unrolled stage loop: body(k, carry) for k in 0..n-1
-    (reversed order if ``reverse``), ``su`` stages per fori_loop step plus a
-    statically peeled tail. Mosaic only supports full or no unrolling in
-    ``fori_loop`` itself, so the unroll is done at trace time: each loop
-    step issues ``su`` stage bodies back-to-back, amortizing the per-step
-    loop/branch/address overhead and giving the compiler ILP across stages.
-    """
-    su = max(1, min(su, n if n else 1))
-    full, rem = divmod(n, su)
-
-    def idx(i):
-        return (n - 1 - i) if reverse else i
-
-    def step(b, c):
-        for j in range(su):
-            c = body(idx(b * su + j), c)
-        return c
-
-    carry = jax.lax.fori_loop(0, full, step, carry)
-    for j in range(rem):                      # static tail
-        carry = body(idx(full * su + j), carry)
-    return carry
-
 
 # ---------------------------------------------------------------------------
 # kernel
 # ---------------------------------------------------------------------------
 
-def _ip_solve_kernel(nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
-                     stat_tol, sigma_max, n_pairs, ST, LQX, LQU, LR, LRES,
-                     LAFF,
-                     QPX_hbm, QPU_hbm, DX0_in,
-                     dx_o, du_o, s_o, mu_o, stat_o,
-                     QPXv, QPUv, sem_x, sem_u, sem_out,
-                     SDX, SDU, SS, SNU,
-                     STUL, SLUL, STUU, SLUU,
-                     STXL, SLXL, STXU, SLXU,
-                     STH, SLH, SLS,
-                     RIC, RES, AFFP):
-    # QP data stays in HBM (memory_space=ANY) and is copied ONCE per batch
-    # tile into single VMEM scratch buffers — half the footprint of the
-    # pipelined double-buffering BlockSpecs would use, and the copy (a few
-    # MB at ~1 TB/s) is negligible next to the tile's multi-ms solve.
-    # Two arrays: (N+1)-stage cost/constraint fields and N-stage dynamics
-    # fields (see _layouts). dx/du/s outputs are ANY (HBM) and receive the
-    # state scratch by DMA at the end — no VMEM output blocks.
-    b = pl.program_id(0)
-    cpx = pltpu.make_async_copy(QPX_hbm.at[b], QPXv, sem_x)
-    cpu = pltpu.make_async_copy(QPU_hbm.at[b], QPUv, sem_u)
-    cpx.start()
-    cpu.start()
-    cpx.wait()
-    cpu.wait()
-    SDXr, SDUr, SSr = SDX, SDU, SS          # raw refs for the output DMA
-    mu_o, stat_o = (r.at[0] for r in (mu_o, stat_o))
-    (QPX, QPU, DX0, mu_o, stat_o,
-     SDX, SDU, SS, SNU, STUL, SLUL, STUU, SLUU,
-     STXL, SLXL, STXU, SLXU, STH, SLH, SLS,
-     RIC, RES, AFFP) = [
-        _R(r, sb) for r in (QPXv, QPUv, DX0_in.at[0], mu_o, stat_o,
-                            SDX, SDU, SS, SNU, STUL, SLUL, STUU, SLUU,
-                            STXL, SLXL, STXU, SLXU, STH, SLH, SLS,
-                            RIC, RES, AFFP)]
+def _ip_kernel(phases, nx, nu, N, M, nbx, reg, tau, tol, stat_tol,
+               sigma_max, n_pairs, ST, LQX, LQU, LR, LAFF,
+               QPX, QPU, DX0, *refs):
+    """Run ``phases`` in order on this program's block of scenarios: any of
+    "init", then per iteration "residual", "factor", "back_pred",
+    "fwd_pred", "back_corr", "fwd_corr", "apply".
+
+    Every ref is this program's (stages, field, _BLOCK) window of a
+    batch-last array; ref[k, i] is one (_BLOCK,) vector. The QP data (QPX,
+    QPU, DX0) is read-only. The last ``len(_STATE)`` refs are the solver
+    state (outputs): primal/dual iterates, the factorization (RIC), the
+    stationarity residual (RES), the affine pair products (AFFP) and the
+    per-scenario scalars (SC: mu, stat, mu_t, a_p, a_d, frozen). Launches
+    after the first alias them to their inputs, which come before them in
+    ``refs`` and are not read here: each launch updates the state in
+    place.
+    """
+    (SDX, SDU, SS, SNU, STUL, SLUL, STUU, SLUU, STXL, SLXL, STXU, SLXU,
+     STH, SLH, SLS, RIC, RES, AFFP, SC) = refs[-len(_STATE):]
     idxbx = list(IDXBX)
     ntri = nu * (nu + 1) // 2
-    f32max = 3.0e38
+    big = float(jnp.finfo(QPX.dtype).max)
     zero = jnp.zeros_like(QPX[0, 0])
 
     def qref(name):
@@ -498,58 +406,61 @@ def _ip_solve_kernel(nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
     # ================= initialization (matches solve_ocp_qp) =============
     t_min = 0.1
     mu0 = 1.0
+    if "init" in phases:
 
-    x = [DX0[0, i] for i in range(nx)]
-    for i in range(nx):
-        SDX[0, i] = x[i]
-
-    def init_roll(k, xk):
-        xn = _vadd(_mv(qm(k, "A", nx, nx), xk), qv(k, "c", nx))
+        x = [DX0[0, i] for i in range(nx)]
         for i in range(nx):
-            SDX[k + 1, i] = xn[i]
-        return xn
+            SDX[0, i] = x[i]
 
-    jax.lax.fori_loop(0, N, init_roll, x)
+        def init_roll(k, xk):
+            xn = _vadd(_mv(qm(k, "A", nx, nx), xk), qv(k, "c", nx))
+            for i in range(nx):
+                SDX[k + 1, i] = xn[i]
+            return xn
 
-    def init_x(k, _):
-        dxk = sdx(k)
-        g = _vadd(qv(k, "h", M), _mv(qm(k, "C", M, nx), dxk))
-        for m in range(M):
-            s0 = jnp.maximum(t_min, t_min - g[m])
-            SS[k, m] = s0
-            th = jnp.maximum(g[m] + s0, t_min)
-            STH[k, m] = th
-            SLH[k, m] = mu0 / th
-            SLS[k, m] = mu0 / s0
-        lbx = qv(k, "lbx", nbx)
-        ubx = qv(k, "ubx", nbx)
-        for i in range(nbx):
-            t = jnp.maximum(dxk[idxbx[i]] - lbx[i], t_min)
-            STXL[k, i] = t
-            SLXL[k, i] = mu0 / t
-            t = jnp.maximum(ubx[i] - dxk[idxbx[i]], t_min)
-            STXU[k, i] = t
-            SLXU[k, i] = mu0 / t
-        return _
+        jax.lax.fori_loop(0, N, init_roll, x)
 
-    jax.lax.fori_loop(0, N + 1, init_x, 0)
+        def init_x(k, _):
+            dxk = sdx(k)
+            g = _vadd(qv(k, "h", M), _mv(qm(k, "C", M, nx), dxk))
+            for m in range(M):
+                s0 = jnp.maximum(t_min, t_min - g[m])
+                SS[k, m] = s0
+                th = jnp.maximum(g[m] + s0, t_min)
+                STH[k, m] = th
+                SLH[k, m] = mu0 / th
+                SLS[k, m] = mu0 / s0
+            lbx = qv(k, "lbx", nbx)
+            ubx = qv(k, "ubx", nbx)
+            for i in range(nbx):
+                t = jnp.maximum(dxk[idxbx[i]] - lbx[i], t_min)
+                STXL[k, i] = t
+                SLXL[k, i] = mu0 / t
+                t = jnp.maximum(ubx[i] - dxk[idxbx[i]], t_min)
+                STXU[k, i] = t
+                SLXU[k, i] = mu0 / t
+            return _
 
-    def init_u(k, _):
-        lbu = qv(k, "lbu", nu)
-        ubu = qv(k, "ubu", nu)
-        for i in range(nu):
-            SDU[k, i] = zero
-            t = jnp.maximum(-lbu[i], t_min)
-            STUL[k, i] = t
-            SLUL[k, i] = mu0 / t
-            t = jnp.maximum(ubu[i], t_min)
-            STUU[k, i] = t
-            SLUU[k, i] = mu0 / t
-        for i in range(nx):
-            SNU[k, i] = zero
-        return _
+        jax.lax.fori_loop(0, N + 1, init_x, 0)
 
-    jax.lax.fori_loop(0, N, init_u, 0)
+        def init_u(k, _):
+            lbu = qv(k, "lbu", nu)
+            ubu = qv(k, "ubu", nu)
+            for i in range(nu):
+                SDU[k, i] = zero
+                t = jnp.maximum(-lbu[i], t_min)
+                STUL[k, i] = t
+                SLUL[k, i] = mu0 / t
+                t = jnp.maximum(ubu[i], t_min)
+                STUU[k, i] = t
+                SLUU[k, i] = mu0 / t
+            for i in range(nx):
+                SNU[k, i] = zero
+            return _
+
+        jax.lax.fori_loop(0, N, init_u, 0)
+        SC[0, 0] = zero
+        SC[0, 1] = zero
 
     # ================= per-iteration helpers ==============================
     def Zl_at(k):
@@ -623,8 +534,8 @@ def _ip_solve_kernel(nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
         ratio = jnp.where(neg, v / denom, 2.0)
         return jnp.minimum(a, ratio)
 
-    def iteration(it, carry_none):
-        # ===== PHASE 0: duality measure + stationarity residual rx =======
+    # ===== duality measure + stationarity residual rx ====================
+    if "residual" in phases:
         def res_x_body(k, mu):
             for i in range(nbx):
                 mu = mu + STXL[k, i] * SLXL[k, i] + STXU[k, i] * SLXU[k, i]
@@ -632,7 +543,7 @@ def _ip_solve_kernel(nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
                 mu = mu + STH[k, m] * SLH[k, m] + SS[k, m] * SLS[k, m]
             return mu
 
-        mu = _uloop(N + 1, res_x_body, zero, su)
+        mu = jax.lax.fori_loop(0, N + 1, res_x_body, zero)
 
         def rx_at(k, with_next, with_prev, stat):
             """Stationarity wrt x_k -> RES.rx; the k=0 row is stored (used by
@@ -650,13 +561,14 @@ def _ip_solve_kernel(nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
             Ctl = _mv(_mt(qm(k, "C", M, nx)), _lv(SLH, k, 0, M))
             for i in range(nx):
                 v = _ssub(acc[i], Ctl[i])
-                RES[k, LRES.o["rx"] + i] = v
+                RES[k, i] = v
                 if stat is not None:
                     stat = jnp.maximum(stat, jnp.abs(v))
             return stat
 
         rx_at(0, True, False, None)
-        stat = _uloop(N - 1, lambda k, s: rx_at(k + 1, True, True, s), zero, su)
+        stat = jax.lax.fori_loop(0, N - 1, lambda k, s: rx_at(k + 1, True, True, s),
+                                 zero)
         stat = rx_at(N, False, True, stat)
 
         def res_u_body(k, carry):
@@ -668,10 +580,12 @@ def _ip_solve_kernel(nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
                 stat = jnp.maximum(stat, jnp.abs(ru[i]))
             return mu, stat
 
-        mu, stat = _uloop(N, res_u_body, (mu, stat), su)
-        mu = mu / n_pairs
+        mu, stat = jax.lax.fori_loop(0, N, res_u_body, (mu, stat))
+        SC[0, 0] = mu / n_pairs
+        SC[0, 1] = stat
 
-        # ================= PHASE 1: factorization =========================
+    # ================= factorization ======================================
+    if "factor" in phases:
         def Qbar_at(k):
             Qk = qm(k, "Q", nx, nx)
             sxl, sxu = sigmas_x(k)
@@ -724,332 +638,330 @@ def _ip_solve_kernel(nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
         # first stage densifies P
         P_N = [[zero + e if isinstance(e, float) else e for e in row]
                for row in Qbar_at(N)]
-        _uloop(N, lambda i, P: fac_body(i, P), P_N, su)
+        jax.lax.fori_loop(0, N, fac_body, P_N)
 
-        # ================= direction machinery ============================
-        # The affine pass stores its (dx, du) per stage; the corrector's
-        # dt_aff*dl_aff pair products are recomputed from them through the
-        # exact affine delta formulas — identical operands and ops, so the
-        # values are bit-identical to the products the old code stored.
-        def afx(k):
-            return [AFFP[k, LAFF.o["ax"] + i] for i in range(nx)]
+    # ================= direction machinery ============================
+    # The affine pass stores the dt_aff*dl_aff product of every pair; the
+    # corrector right-hand sides read them back.
+    def aff(k, name, n):
+        return _lv(AFFP, k, LAFF.o[name], n)
 
-        def afu(k):
-            return [AFFP[k, LAFF.o["au"] + i] for i in range(nu)]
+    def bc2(t, l, prod, mu_t):
+        return (mu_t - t * l - prod) / jnp.maximum(t, _T_FLOOR)
 
-        def bc2(t, l, prod, mu_t):
-            return (mu_t - t * l - prod) / jnp.maximum(t, _T_FLOOR)
+    def betas_x(k, corrector, mu_t):
+        if not corrector:
+            b_xl = [-SLXL[k, i] for i in range(nbx)]
+            b_xu = [-SLXU[k, i] for i in range(nbx)]
+            b_h = [-SLH[k, m] for m in range(M)]
+            b_s = [-SLS[k, m] for m in range(M)]
+        else:
+            pxl, pxu = aff(k, "pxl", nbx), aff(k, "pxu", nbx)
+            ph, ps = aff(k, "ph", M), aff(k, "ps", M)
+            b_xl = [bc2(STXL[k, i], SLXL[k, i], pxl[i], mu_t)
+                    for i in range(nbx)]
+            b_xu = [bc2(STXU[k, i], SLXU[k, i], pxu[i], mu_t)
+                    for i in range(nbx)]
+            b_h = [bc2(STH[k, m], SLH[k, m], ph[m], mu_t)
+                   for m in range(M)]
+            b_s = [bc2(SS[k, m], SLS[k, m], ps[m], mu_t)
+                   for m in range(M)]
+        return b_xl, b_xu, b_h, b_s
 
-        def betas_x(k, corrector, mu_t):
-            if not corrector:
-                b_xl = [-SLXL[k, i] for i in range(nbx)]
-                b_xu = [-SLXU[k, i] for i in range(nbx)]
-                b_h = [-SLH[k, m] for m in range(M)]
-                b_s = [-SLS[k, m] for m in range(M)]
-            else:
-                soft_a, box_a = x_deltas(k, afx(k), False, None)
-                b_xl = [bc2(STXL[k, i], SLXL[k, i],
-                            box_a[i][0] * box_a[i][2], mu_t)
-                        for i in range(nbx)]
-                b_xu = [bc2(STXU[k, i], SLXU[k, i],
-                            box_a[i][1] * box_a[i][3], mu_t)
-                        for i in range(nbx)]
-                b_h = [bc2(STH[k, m], SLH[k, m],
-                           soft_a[m][1] * soft_a[m][2], mu_t)
-                       for m in range(M)]
-                b_s = [bc2(SS[k, m], SLS[k, m],
-                           soft_a[m][0] * soft_a[m][3], mu_t)
-                       for m in range(M)]
-            return b_xl, b_xu, b_h, b_s
+    def betas_u(k, corrector, mu_t):
+        if not corrector:
+            return ([-SLUL[k, i] for i in range(nu)],
+                    [-SLUU[k, i] for i in range(nu)])
+        pul, puu = aff(k, "pul", nu), aff(k, "puu", nu)
+        return ([bc2(STUL[k, i], SLUL[k, i], pul[i], mu_t)
+                 for i in range(nu)],
+                [bc2(STUU[k, i], SLUU[k, i], puu[i], mu_t)
+                 for i in range(nu)])
 
-        def betas_u(k, corrector, mu_t):
-            if not corrector:
-                return ([-SLUL[k, i] for i in range(nu)],
-                        [-SLUU[k, i] for i in range(nu)])
-            uk_a = afu(k)
-            rul, ruu = res_box_u(k)
-            sul, suu = sigmas_u(k)
-            b_ul, b_uu = [], []
-            for i in range(nu):
-                dtul = uk_a[i] + rul[i]
-                dtuu = -uk_a[i] + ruu[i]
-                dlul = -SLUL[k, i] - sul[i] * dtul
-                dluu = -SLUU[k, i] - suu[i] * dtuu
-                b_ul.append(bc2(STUL[k, i], SLUL[k, i], dtul * dlul, mu_t))
-                b_uu.append(bc2(STUU[k, i], SLUU[k, i], dtuu * dluu, mu_t))
-            return b_ul, b_uu
+    def qbar_at(k, corrector, mu_t):
+        b_xl, b_xu, b_h, b_s = betas_x(k, corrector, mu_t)
+        sxl, sxu = sigmas_x(k)
+        sh, ss, zeta, _ = sigmas_h(k)
+        rxl, rxu = res_box_x(k)
+        rh_l, rs_l = res_soft(k)
+        acc = [RES[k, i] for i in range(nx)]
+        for i in range(nbx):
+            acc[idxbx[i]] = (acc[idxbx[i]]
+                             - (b_xl[i] - sxl[i] * rxl[i])
+                             + (b_xu[i] - sxu[i] * rxu[i]))
+        Ck = qm(k, "C", M, nx)
+        bh_hat = []
+        for m in range(M):
+            rho = (-rs_l[m] + b_h[m] + b_s[m] - sh[m] * rh_l[m])
+            bh_hat.append(b_h[m] - sh[m] * rh_l[m] - sh[m] * rho / zeta[m])
+        Ctb = _mv(_mt(Ck), bh_hat)
+        return [_ssub(acc[i], Ctb[i]) for i in range(nx)]
 
-        def qbar_at(k, corrector, mu_t):
-            b_xl, b_xu, b_h, b_s = betas_x(k, corrector, mu_t)
-            sxl, sxu = sigmas_x(k)
-            sh, ss, zeta, _ = sigmas_h(k)
-            rxl, rxu = res_box_x(k)
-            rh_l, rs_l = res_soft(k)
-            acc = [RES[k, LRES.o["rx"] + i] for i in range(nx)]
-            for i in range(nbx):
-                acc[idxbx[i]] = (acc[idxbx[i]]
-                                 - (b_xl[i] - sxl[i] * rxl[i])
-                                 + (b_xu[i] - sxu[i] * rxu[i]))
-            Ck = qm(k, "C", M, nx)
-            bh_hat = []
-            for m in range(M):
-                rho = (-rs_l[m] + b_h[m] + b_s[m] - sh[m] * rh_l[m])
-                bh_hat.append(b_h[m] - sh[m] * rh_l[m] - sh[m] * rho / zeta[m])
-            Ctb = _mv(_mt(Ck), bh_hat)
-            return [_ssub(acc[i], Ctb[i]) for i in range(nx)]
+    def rbar_at(k, corrector, mu_t):
+        b_ul, b_uu = betas_u(k, corrector, mu_t)
+        sul, suu = sigmas_u(k)
+        rul, ruu = res_box_u(k)
+        ru = res_u_at(k)
+        return [ru[i]
+                - (b_ul[i] - sul[i] * rul[i])
+                + (b_uu[i] - suu[i] * ruu[i])
+                for i in range(nu)]
 
-        def rbar_at(k, corrector, mu_t):
-            b_ul, b_uu = betas_u(k, corrector, mu_t)
-            sul, suu = sigmas_u(k)
-            rul, ruu = res_box_u(k)
-            ru = res_u_at(k)
-            return [ru[i]
-                    - (b_ul[i] - sul[i] * rul[i])
-                    + (b_uu[i] - suu[i] * ruu[i])
-                    for i in range(nu)]
+    def dyn_gap(k):
+        """d_k = -r_dyn_k, recomputed from state (not stored)."""
+        Ax = _mv(qm(k, "A", nx, nx), sdx(k))
+        Bu = _mv(qm(k, "B", nx, nu), sdu(k))
+        ck = qv(k, "c", nx)
+        return [-(SDX[k + 1, i] - Ax[i] - Bu[i] - ck[i])
+                for i in range(nx)]
 
-        def dyn_gap(k):
-            """d_k = -r_dyn_k, recomputed from state (not stored)."""
-            Ax = _mv(qm(k, "A", nx, nx), sdx(k))
-            Bu = _mv(qm(k, "B", nx, nu), sdu(k))
-            ck = qv(k, "c", nx)
-            return [-(SDX[k + 1, i] - Ax[i] - Bu[i] - ck[i])
-                    for i in range(nx)]
-
-        def backward(corrector, mu_t):
-            def bb(i, p):
-                k = N - 1 - i
-                _svec(RIC, k, LR.o["pn"], p)
-                Pk1 = _lsym(RIC, k, LR.o["P"], nx)
-                Lf = _lv(RIC, k, LR.o["L"], ntri)
-                Kk = _lm(RIC, k, LR.o["K"], nu, nx)
-                d = dyn_gap(k)
-                Pd_p = _vadd(_mv(Pk1, d), p)
-                BT = _mt(qm(k, "B", nx, nu))
-                m_v = _vadd(rbar_at(k, corrector, mu_t), _mv(BT, Pd_p))
-                kff = [-v for v in _chol_solve_small(Lf, m_v)]
-                _svec(RIC, k, LR.o["kff"], kff)
-                AT = _mt(qm(k, "A", nx, nx))
-                return _vadd(qbar_at(k, corrector, mu_t),
-                             _vadd(_mv(AT, Pd_p), _mv(_mt(Kk), m_v)))
-
-            _uloop(N, bb, qbar_at(N, corrector, mu_t), su)
-
-        def x_deltas(k, xk, corrector, mu_t):
-            """Soft + x-box Newton deltas at stage k given Ddx_k = xk.
-
-            Returns (soft, box): soft[m] = (ds, dt_h, dl_h, dl_s),
-            box[i] = (dt_xl, dt_xu, dl_xl, dl_xu). Pure function of the
-            (unmodified) IP state, so the apply pass can recompute the
-            exact same values the collect pass bounded the step with.
-            """
-            b_xl, b_xu, b_h, b_s = betas_x(k, corrector, mu_t)
-            sxl, sxu = sigmas_x(k)
-            sh, ss, zeta, _ = sigmas_h(k)
-            rxl, rxu = res_box_x(k)
-            rh_l, rs_l = res_soft(k)
-            CD = _mv(qm(k, "C", M, nx), xk)
-            soft = []
-            for m in range(M):
-                rho = (-rs_l[m] + b_h[m] + b_s[m] - sh[m] * rh_l[m])
-                ds = (rho - sh[m] * CD[m]) / zeta[m]
-                dth = CD[m] + ds + rh_l[m]
-                dlh = b_h[m] - sh[m] * dth
-                dls = b_s[m] - ss[m] * ds
-                soft.append((ds, dth, dlh, dls))
-            box = []
-            for i in range(nbx):
-                dtxl = xk[idxbx[i]] + rxl[i]
-                dtxu = -xk[idxbx[i]] + rxu[i]
-                dlxl = b_xl[i] - sxl[i] * dtxl
-                dlxu = b_xu[i] - sxu[i] * dtxu
-                box.append((dtxl, dtxu, dlxl, dlxu))
-            return soft, box
-
-        def u_deltas(k, xk, corrector, mu_t):
-            """Control delta uk = K xk + kff plus the u-box pair deltas."""
-            b_ul, b_uu = betas_u(k, corrector, mu_t)
+    def backward(corrector, mu_t):
+        def bb(i, p):
+            k = N - 1 - i
+            _svec(RIC, k, LR.o["pn"], p)
+            Pk1 = _lsym(RIC, k, LR.o["P"], nx)
+            Lf = _lv(RIC, k, LR.o["L"], ntri)
             Kk = _lm(RIC, k, LR.o["K"], nu, nx)
-            kff = _lv(RIC, k, LR.o["kff"], nu)
-            uk = _vadd(_mv(Kk, xk), kff)
-            sul, suu = sigmas_u(k)
-            rul, ruu = res_box_u(k)
-            ud = []
-            for i in range(nu):
-                dtul = uk[i] + rul[i]
-                dtuu = -uk[i] + ruu[i]
-                dlul = b_ul[i] - sul[i] * dtul
-                dluu = b_uu[i] - suu[i] * dtuu
-                ud.append((dtul, dtuu, dlul, dluu))
-            return uk, ud
-
-        def roll(k, xk, uk):
             d = dyn_gap(k)
-            Ak = qm(k, "A", nx, nx)
-            Bk = qm(k, "B", nx, nu)
-            return _vadd(_vadd(_mv(Ak, xk), _mv(Bk, uk)), d)
+            Pd_p = _vadd(_mv(Pk1, d), p)
+            BT = _mt(qm(k, "B", nx, nu))
+            m_v = _vadd(rbar_at(k, corrector, mu_t), _mv(BT, Pd_p))
+            kff = [-v for v in _chol_solve_small(Lf, m_v)]
+            _svec(RIC, k, LR.o["kff"], kff)
+            AT = _mt(qm(k, "A", nx, nx))
+            return _vadd(qbar_at(k, corrector, mu_t),
+                         _vadd(_mv(AT, Pd_p), _mv(_mt(Kk), m_v)))
 
-        def x_bounds(k, xk, soft, box, a_pr, a_du):
+        jax.lax.fori_loop(0, N, bb, qbar_at(N, corrector, mu_t))
+
+    def x_deltas(k, xk, corrector, mu_t):
+        """Soft + x-box Newton deltas at stage k given Ddx_k = xk.
+
+        Returns (soft, box): soft[m] = (ds, dt_h, dl_h, dl_s),
+        box[i] = (dt_xl, dt_xu, dl_xl, dl_xu). Pure function of the
+        (unmodified) IP state, so the apply pass can recompute the
+        exact same values the collect pass bounded the step with.
+        """
+        b_xl, b_xu, b_h, b_s = betas_x(k, corrector, mu_t)
+        sxl, sxu = sigmas_x(k)
+        sh, ss, zeta, _ = sigmas_h(k)
+        rxl, rxu = res_box_x(k)
+        rh_l, rs_l = res_soft(k)
+        CD = _mv(qm(k, "C", M, nx), xk)
+        soft = []
+        for m in range(M):
+            rho = (-rs_l[m] + b_h[m] + b_s[m] - sh[m] * rh_l[m])
+            ds = (rho - sh[m] * CD[m]) / zeta[m]
+            dth = CD[m] + ds + rh_l[m]
+            dlh = b_h[m] - sh[m] * dth
+            dls = b_s[m] - ss[m] * ds
+            soft.append((ds, dth, dlh, dls))
+        box = []
+        for i in range(nbx):
+            dtxl = xk[idxbx[i]] + rxl[i]
+            dtxu = -xk[idxbx[i]] + rxu[i]
+            dlxl = b_xl[i] - sxl[i] * dtxl
+            dlxu = b_xu[i] - sxu[i] * dtxu
+            box.append((dtxl, dtxu, dlxl, dlxu))
+        return soft, box
+
+    def u_deltas(k, xk, corrector, mu_t):
+        """Control delta uk = K xk + kff plus the u-box pair deltas."""
+        b_ul, b_uu = betas_u(k, corrector, mu_t)
+        Kk = _lm(RIC, k, LR.o["K"], nu, nx)
+        kff = _lv(RIC, k, LR.o["kff"], nu)
+        uk = _vadd(_mv(Kk, xk), kff)
+        sul, suu = sigmas_u(k)
+        rul, ruu = res_box_u(k)
+        ud = []
+        for i in range(nu):
+            dtul = uk[i] + rul[i]
+            dtuu = -uk[i] + ruu[i]
+            dlul = b_ul[i] - sul[i] * dtul
+            dluu = b_uu[i] - suu[i] * dtuu
+            ud.append((dtul, dtuu, dlul, dluu))
+        return uk, ud
+
+    def roll(k, xk, uk):
+        d = dyn_gap(k)
+        Ak = qm(k, "A", nx, nx)
+        Bk = qm(k, "B", nx, nu)
+        return _vadd(_vadd(_mv(Ak, xk), _mv(Bk, uk)), d)
+
+    def x_bounds(k, xk, soft, box, a_pr, a_du):
+        for m, (ds, dth, dlh, dls) in enumerate(soft):
+            a_pr = ftb(ftb(a_pr, STH[k, m], dth), SS[k, m], ds)
+            a_du = ftb(ftb(a_du, SLH[k, m], dlh), SLS[k, m], dls)
+        for i, (dtxl, dtxu, dlxl, dlxu) in enumerate(box):
+            a_pr = ftb(ftb(a_pr, STXL[k, i], dtxl), STXU[k, i], dtxu)
+            a_du = ftb(ftb(a_du, SLXL[k, i], dlxl), SLXU[k, i], dlxu)
+        return a_pr, a_du
+
+    def forward_affine():
+        """Affine recovery pass: fraction-to-boundary bounds, the mu_aff
+        cross sums S1-S3, and the dt*dl pair products per stage (stored
+        in AFFP for the corrector)."""
+        def x_part(k, xk, acc):
+            a_pr, a_du, S1, S2, S3 = acc
+            soft, box = x_deltas(k, xk, False, None)
             for m, (ds, dth, dlh, dls) in enumerate(soft):
-                a_pr = ftb(ftb(a_pr, STH[k, m], dth), SS[k, m], ds)
-                a_du = ftb(ftb(a_du, SLH[k, m], dlh), SLS[k, m], dls)
+                AFFP[k, LAFF.o["ph"] + m] = dth * dlh
+                AFFP[k, LAFF.o["ps"] + m] = ds * dls
             for i, (dtxl, dtxu, dlxl, dlxu) in enumerate(box):
-                a_pr = ftb(ftb(a_pr, STXL[k, i], dtxl), STXU[k, i], dtxu)
-                a_du = ftb(ftb(a_du, SLXL[k, i], dlxl), SLXU[k, i], dlxu)
-            return a_pr, a_du
+                AFFP[k, LAFF.o["pxl"] + i] = dtxl * dlxl
+                AFFP[k, LAFF.o["pxu"] + i] = dtxu * dlxu
+            a_pr, a_du = x_bounds(k, xk, soft, box, a_pr, a_du)
+            for m, (ds, dth, dlh, dls) in enumerate(soft):
+                S1 = S1 + dth * SLH[k, m] + ds * SLS[k, m]
+                S2 = S2 + STH[k, m] * dlh + SS[k, m] * dls
+                S3 = S3 + dth * dlh + ds * dls
+            for i, (dtxl, dtxu, dlxl, dlxu) in enumerate(box):
+                S1 = S1 + dtxl * SLXL[k, i] + dtxu * SLXU[k, i]
+                S2 = S2 + STXL[k, i] * dlxl + STXU[k, i] * dlxu
+                S3 = S3 + dtxl * dlxl + dtxu * dlxu
+            return (a_pr, a_du, S1, S2, S3)
 
-        def forward_affine():
-            """Affine recovery pass: fraction-to-boundary bounds, the mu_aff
-            cross sums S1-S3, and the affine (dx, du) per stage (stored in
-            AFFP — the corrector betas recompute the dt*dl pair products
-            from them)."""
-            def x_part(k, xk, acc):
-                a_pr, a_du, S1, S2, S3 = acc
-                for i in range(nx):
-                    AFFP[k, LAFF.o["ax"] + i] = xk[i]
-                soft, box = x_deltas(k, xk, False, None)
-                a_pr, a_du = x_bounds(k, xk, soft, box, a_pr, a_du)
-                for m, (ds, dth, dlh, dls) in enumerate(soft):
-                    S1 = S1 + dth * SLH[k, m] + ds * SLS[k, m]
-                    S2 = S2 + STH[k, m] * dlh + SS[k, m] * dls
-                    S3 = S3 + dth * dlh + ds * dls
-                for i, (dtxl, dtxu, dlxl, dlxu) in enumerate(box):
-                    S1 = S1 + dtxl * SLXL[k, i] + dtxu * SLXU[k, i]
-                    S2 = S2 + STXL[k, i] * dlxl + STXU[k, i] * dlxu
-                    S3 = S3 + dtxl * dlxl + dtxu * dlxu
-                return (a_pr, a_du, S1, S2, S3)
+        def fb(k, carry):
+            xk, acc = carry
+            acc = x_part(k, xk, acc)
+            a_pr, a_du, S1, S2, S3 = acc
+            uk, ud = u_deltas(k, xk, False, None)
+            for i, (dtul, dtuu, dlul, dluu) in enumerate(ud):
+                a_pr = ftb(ftb(a_pr, STUL[k, i], dtul), STUU[k, i], dtuu)
+                a_du = ftb(ftb(a_du, SLUL[k, i], dlul), SLUU[k, i], dluu)
+                AFFP[k, LAFF.o["pul"] + i] = dtul * dlul
+                AFFP[k, LAFF.o["puu"] + i] = dtuu * dluu
+                S1 = S1 + dtul * SLUL[k, i] + dtuu * SLUU[k, i]
+                S2 = S2 + STUL[k, i] * dlul + STUU[k, i] * dluu
+                S3 = S3 + dtul * dlul + dtuu * dluu
+            return roll(k, xk, uk), (a_pr, a_du, S1, S2, S3)
 
-            def fb(k, carry):
-                xk, acc = carry
-                acc = x_part(k, xk, acc)
-                a_pr, a_du, S1, S2, S3 = acc
-                uk, ud = u_deltas(k, xk, False, None)
-                for i, (dtul, dtuu, dlul, dluu) in enumerate(ud):
-                    a_pr = ftb(ftb(a_pr, STUL[k, i], dtul), STUU[k, i], dtuu)
-                    a_du = ftb(ftb(a_du, SLUL[k, i], dlul), SLUU[k, i], dluu)
-                    AFFP[k, LAFF.o["au"] + i] = uk[i]
-                    S1 = S1 + dtul * SLUL[k, i] + dtuu * SLUU[k, i]
-                    S2 = S2 + STUL[k, i] * dlul + STUU[k, i] * dluu
-                    S3 = S3 + dtul * dlul + dtuu * dluu
-                return roll(k, xk, uk), (a_pr, a_du, S1, S2, S3)
+        xk0 = [zero for _ in range(nx)]
+        acc0 = (jnp.full_like(zero, 2.0), jnp.full_like(zero, 2.0),
+                zero, zero, zero)
+        xk, acc = jax.lax.fori_loop(0, N, fb, (xk0, acc0))
+        return x_part(N, xk, acc)
 
-            xk0 = [zero for _ in range(nx)]
-            acc0 = (jnp.full_like(mu, 2.0), jnp.full_like(mu, 2.0),
-                    zero, zero, zero)
-            xk, acc = _uloop(N, fb, (xk0, acc0), su)
-            return x_part(N, xk, acc)
+    def forward_collect(mu_t):
+        """Corrector step bounds + finiteness probe. Nothing is stored:
+        the apply pass recomputes the identical deltas once a_p/a_d are
+        known, which removes the whole corrector-delta scratch array
+        (the state is only mutated in the apply pass, so both passes
+        see the same inputs).
 
-        def forward_collect(mu_t):
-            """Corrector step bounds + finiteness probe. Nothing is stored:
-            the apply pass recomputes the identical deltas once a_p/a_d are
-            known, which removes the whole corrector-delta scratch array
-            (the state is only mutated in the apply pass, so both passes
-            see the same inputs).
+        The probe ``chk`` accumulates EVERY component the apply pass
+        will add to the state — primal deltas, dual deltas (an inf dual
+        with finite primals would otherwise poison the carried
+        multipliers) and the costate update — mirroring the
+        all-component guard in ``ip_qp.py``. inf - inf inside the sum
+        yields NaN, which the ``chk == chk`` test catches."""
+        def x_part(k, xk, acc):
+            a_pr, a_du, chk = acc
+            soft, box = x_deltas(k, xk, True, mu_t)
+            a_pr, a_du = x_bounds(k, xk, soft, box, a_pr, a_du)
+            for ds, dth, dlh, dls in soft:
+                chk = chk + ds + dth + dlh + dls
+            for dtxl, dtxu, dlxl, dlxu in box:
+                chk = chk + dtxl + dtxu + dlxl + dlxu
+            for i in range(nx):
+                chk = chk + xk[i]
+            return (a_pr, a_du, chk)
 
-            The probe ``chk`` accumulates EVERY component the apply pass
-            will add to the state — primal deltas, dual deltas (an inf dual
-            with finite primals would otherwise poison the carried
-            multipliers) and the costate update — mirroring the
-            all-component guard in ``ip_qp.py``. inf - inf inside the sum
-            yields NaN, which the ``chk == chk`` test catches."""
-            def x_part(k, xk, acc):
-                a_pr, a_du, chk = acc
-                soft, box = x_deltas(k, xk, True, mu_t)
-                a_pr, a_du = x_bounds(k, xk, soft, box, a_pr, a_du)
-                for ds, dth, dlh, dls in soft:
-                    chk = chk + ds + dth + dlh + dls
-                for dtxl, dtxu, dlxl, dlxu in box:
-                    chk = chk + dtxl + dtxu + dlxl + dlxu
-                for i in range(nx):
-                    chk = chk + xk[i]
-                return (a_pr, a_du, chk)
+        def fb(k, carry):
+            xk, acc = carry
+            acc = x_part(k, xk, acc)
+            a_pr, a_du, chk = acc
+            uk, ud = u_deltas(k, xk, True, mu_t)
+            for i, (dtul, dtuu, dlul, dluu) in enumerate(ud):
+                a_pr = ftb(ftb(a_pr, STUL[k, i], dtul), STUU[k, i], dtuu)
+                a_du = ftb(ftb(a_du, SLUL[k, i], dlul), SLUU[k, i], dluu)
+                chk = chk + dtul + dtuu + dlul + dluu
+            for i in range(nu):
+                chk = chk + uk[i]
+            xn = roll(k, xk, uk)
+            # costate delta -(P x_{k+1} + p) — probed too
+            Px = _mv(_lsym(RIC, k, LR.o["P"], nx), xn)
+            pn = _lv(RIC, k, LR.o["pn"], nx)
+            for i in range(nx):
+                chk = chk + Px[i] + pn[i]
+            return xn, (a_pr, a_du, chk)
 
-            def fb(k, carry):
-                xk, acc = carry
-                acc = x_part(k, xk, acc)
-                a_pr, a_du, chk = acc
-                uk, ud = u_deltas(k, xk, True, mu_t)
-                for i, (dtul, dtuu, dlul, dluu) in enumerate(ud):
-                    a_pr = ftb(ftb(a_pr, STUL[k, i], dtul), STUU[k, i], dtuu)
-                    a_du = ftb(ftb(a_du, SLUL[k, i], dlul), SLUU[k, i], dluu)
-                    chk = chk + dtul + dtuu + dlul + dluu
-                for i in range(nu):
-                    chk = chk + uk[i]
-                xn = roll(k, xk, uk)
-                # costate delta -(P x_{k+1} + p) — probed too
-                Px = _mv(_lsym(RIC, k, LR.o["P"], nx), xn)
-                pn = _lv(RIC, k, LR.o["pn"], nx)
-                for i in range(nx):
-                    chk = chk + Px[i] + pn[i]
-                return xn, (a_pr, a_du, chk)
+        xk0 = [zero for _ in range(nx)]
+        acc0 = (jnp.full_like(zero, 2.0), jnp.full_like(zero, 2.0), zero)
+        xk, acc = jax.lax.fori_loop(0, N, fb, (xk0, acc0))
+        return x_part(N, xk, acc)
 
-            xk0 = [zero for _ in range(nx)]
-            acc0 = (jnp.full_like(mu, 2.0), jnp.full_like(mu, 2.0), zero)
-            xk, acc = _uloop(N, fb, (xk0, acc0), su)
-            return x_part(N, xk, acc)
+    def forward_apply(mu_t, a_p, a_d, upd):
+        """Recompute the corrector deltas and apply the masked update
+        in place. Per stage the order is: compute every delta from the
+        OLD state (x/soft, u, rollout to x_{k+1}, costate), then mutate
+        stage k — stage k+1 still reads untouched state next step."""
+        def x_apply(k, xk, soft, box):
+            for i in range(nx):
+                SDX[k, i] = upd(SDX[k, i], a_p, xk[i])
+            for m, (ds, dth, dlh, dls) in enumerate(soft):
+                SS[k, m] = upd(SS[k, m], a_p, ds, True)
+                STH[k, m] = upd(STH[k, m], a_p, dth, True)
+                SLH[k, m] = upd(SLH[k, m], a_d, dlh, True)
+                SLS[k, m] = upd(SLS[k, m], a_d, dls, True)
+            for i, (dtxl, dtxu, dlxl, dlxu) in enumerate(box):
+                STXL[k, i] = upd(STXL[k, i], a_p, dtxl, True)
+                SLXL[k, i] = upd(SLXL[k, i], a_d, dlxl, True)
+                STXU[k, i] = upd(STXU[k, i], a_p, dtxu, True)
+                SLXU[k, i] = upd(SLXU[k, i], a_d, dlxu, True)
 
-        def forward_apply(mu_t, a_p, a_d, upd):
-            """Recompute the corrector deltas and apply the masked update
-            in place. Per stage the order is: compute every delta from the
-            OLD state (x/soft, u, rollout to x_{k+1}, costate), then mutate
-            stage k — stage k+1 still reads untouched state next step."""
-            def x_apply(k, xk, soft, box):
-                for i in range(nx):
-                    SDX[k, i] = upd(SDX[k, i], a_p, xk[i])
-                for m, (ds, dth, dlh, dls) in enumerate(soft):
-                    SS[k, m] = upd(SS[k, m], a_p, ds, True)
-                    STH[k, m] = upd(STH[k, m], a_p, dth, True)
-                    SLH[k, m] = upd(SLH[k, m], a_d, dlh, True)
-                    SLS[k, m] = upd(SLS[k, m], a_d, dls, True)
-                for i, (dtxl, dtxu, dlxl, dlxu) in enumerate(box):
-                    STXL[k, i] = upd(STXL[k, i], a_p, dtxl, True)
-                    SLXL[k, i] = upd(SLXL[k, i], a_d, dlxl, True)
-                    STXU[k, i] = upd(STXU[k, i], a_p, dtxu, True)
-                    SLXU[k, i] = upd(SLXU[k, i], a_d, dlxu, True)
+        def fb(k, xk):
+            soft, box = x_deltas(k, xk, True, mu_t)
+            uk, ud = u_deltas(k, xk, True, mu_t)
+            xn = roll(k, xk, uk)
+            Pk1 = _lsym(RIC, k, LR.o["P"], nx)
+            pn = _lv(RIC, k, LR.o["pn"], nx)
+            Px = _mv(Pk1, xn)
+            x_apply(k, xk, soft, box)
+            for i, (dtul, dtuu, dlul, dluu) in enumerate(ud):
+                SDU[k, i] = upd(SDU[k, i], a_p, uk[i])
+                STUL[k, i] = upd(STUL[k, i], a_p, dtul, True)
+                SLUL[k, i] = upd(SLUL[k, i], a_d, dlul, True)
+                STUU[k, i] = upd(STUU[k, i], a_p, dtuu, True)
+                SLUU[k, i] = upd(SLUU[k, i], a_d, dluu, True)
+            for i in range(nx):
+                SNU[k, i] = upd(SNU[k, i], a_d, -(Px[i] + pn[i]))
+            return xn
 
-            def fb(k, xk):
-                soft, box = x_deltas(k, xk, True, mu_t)
-                uk, ud = u_deltas(k, xk, True, mu_t)
-                xn = roll(k, xk, uk)
-                Pk1 = _lsym(RIC, k, LR.o["P"], nx)
-                pn = _lv(RIC, k, LR.o["pn"], nx)
-                Px = _mv(Pk1, xn)
-                x_apply(k, xk, soft, box)
-                for i, (dtul, dtuu, dlul, dluu) in enumerate(ud):
-                    SDU[k, i] = upd(SDU[k, i], a_p, uk[i])
-                    STUL[k, i] = upd(STUL[k, i], a_p, dtul, True)
-                    SLUL[k, i] = upd(SLUL[k, i], a_d, dlul, True)
-                    STUU[k, i] = upd(STUU[k, i], a_p, dtuu, True)
-                    SLUU[k, i] = upd(SLUU[k, i], a_d, dluu, True)
-                for i in range(nx):
-                    SNU[k, i] = upd(SNU[k, i], a_d, -(Px[i] + pn[i]))
-                return xn
+        xk = jax.lax.fori_loop(0, N, fb, [zero for _ in range(nx)])
+        soft, box = x_deltas(N, xk, True, mu_t)
+        x_apply(N, xk, soft, box)
 
-            xk = _uloop(N, fb, [zero for _ in range(nx)], su)
-            soft, box = x_deltas(N, xk, True, mu_t)
-            x_apply(N, xk, soft, box)
-
-        # ================= predictor ======================================
+    # ================= predictor ==========================================
+    if "back_pred" in phases:
         backward(False, None)
+    if "fwd_pred" in phases:
+        mu = SC[0, 0]
         ap_raw, ad_raw, S1, S2, S3 = forward_affine()
         ap_aff = jnp.minimum(ap_raw, 1.0)
         ad_aff = jnp.minimum(ad_raw, 1.0)
         mu_aff = (mu * n_pairs + ap_aff * S1 + ad_aff * S2
                   + ap_aff * ad_aff * S3) / n_pairs
         sig_c = jnp.clip((mu_aff / jnp.maximum(mu, _T_FLOOR)) ** 3, 0.0, 1.0)
-        mu_t = sig_c * mu
+        SC[0, 2] = sig_c * mu
 
-        # ================= corrector ======================================
-        backward(True, mu_t)
-        ap_raw, ad_raw, chk = forward_collect(mu_t)
+    # ================= corrector ==========================================
+    if "back_corr" in phases:
+        backward(True, SC[0, 2])
+    if "fwd_corr" in phases:
+        ap_raw, ad_raw, chk = forward_collect(SC[0, 2])
         a_p = jnp.minimum(tau * ap_raw, 1.0)
         a_d = jnp.minimum(tau * ad_raw, 1.0)
-
-        converged = (mu < tol) & (stat < stat_tol)
-        finite = ((jnp.abs(chk) < f32max) & (chk == chk)
+        converged = (SC[0, 0] < tol) & (SC[0, 1] < stat_tol)
+        finite = ((jnp.abs(chk) < big) & (chk == chk)
                   & (a_p == a_p) & (a_d == a_d))
-        frozen = converged | ~finite
+        SC[0, 3] = a_p
+        SC[0, 4] = a_d
+        SC[0, 5] = jnp.where(converged | ~finite, 1.0, 0.0)
 
+    # ================= state update (recompute + apply) ===================
+    if "apply" in phases:
+        frozen = SC[0, 5] > 0.5
         tiny = 1e-30
 
         def upd(old, a, step, positive=False):
@@ -1058,153 +970,131 @@ def _ip_solve_kernel(nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
                 v = jnp.maximum(v, tiny)
             return jnp.where(frozen, old, v)
 
-        # ================= state update (recompute + apply) ===============
-        forward_apply(mu_t, a_p, a_d, upd)
-
-        # mu/stat of the *current* iterate (pre-update), like the per-launch
-        # kernel's outputs — the last write wins, matching mus[-1]/stats[-1].
-        mu_o[0, 0] = mu
-        stat_o[0, 0] = stat
-        return carry_none
-
-    jax.lax.fori_loop(0, iters, iteration, 0)
-
-    # ================= outputs ============================================
-    # dx/du/s ARE the state scratch — DMA it straight to the ANY (HBM)
-    # outputs instead of paying double-buffered VMEM output blocks.
-    for src, dst in ((SDXr, dx_o), (SDUr, du_o), (SSr, s_o)):
-        cp = pltpu.make_async_copy(src, dst.at[b], sem_out)
-        cp.start()
-        cp.wait()
+        forward_apply(SC[0, 2], SC[0, 3], SC[0, 4], upd)
 
 
 # ---------------------------------------------------------------------------
 # host-side wrapper
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=(
-    "nx", "nu", "N", "M", "iters", "su", "sb", "tile", "reg", "tau", "tol",
-    "stat_tol", "sigma_max", "structure", "interpret", "vmem_limit_bytes"))
-def _ip_solve_batchlast(QPX, QPU, DX0, nx, nu, N, M, iters, su, sb, tile,
-                        reg, tau, tol, stat_tol, sigma_max,
-                        structure=GENERIC_STRUCTURE, interpret=False,
-                        vmem_limit_bytes=None):
+# The solver state arrays, in kernel-ref order: (name, stages, field width)
+# with stages/width as functions of (N, nx, nu, M, nbx, LR, LAFF).
+_STATE = (
+    ("dx", lambda N: N + 1, lambda d: d["nx"]),
+    ("du", lambda N: N, lambda d: d["nu"]),
+    ("s", lambda N: N + 1, lambda d: d["M"]),
+    ("nu_dyn", lambda N: N, lambda d: d["nx"]),
+    *[(n, lambda N: N, lambda d: d["nu"])
+      for n in ("t_ul", "l_ul", "t_uu", "l_uu")],
+    *[(n, lambda N: N + 1, lambda d: d["nbx"])
+      for n in ("t_xl", "l_xl", "t_xu", "l_xu")],
+    *[(n, lambda N: N + 1, lambda d: d["M"]) for n in ("t_h", "l_h", "l_s")],
+    ("ric", lambda N: N, lambda d: d["LR"].width),
+    ("res", lambda N: N + 1, lambda d: d["nx"]),
+    ("aff", lambda N: N + 1, lambda d: d["LAFF"].width),
+    ("sc", lambda N: 1, lambda d: 8),
+)
+
+# One interior-point iteration as a sequence of launches, each running the
+# phases it names. Several launches instead of one keep each Triton kernel
+# small enough to compile quickly; the state lives in device memory either
+# way, so a launch boundary costs only the launch.
+_LAUNCHES = (("residual", "factor"), ("back_pred", "fwd_pred"),
+             ("back_corr", "fwd_corr"), ("apply",))
+
+
+def _launch(phases, QPX, QPU, DX0, state, *, nx, nu, N, M, block,
+            num_warps, reg, tau, tol, stat_tol, sigma_max, structure,
+            interpret):
+    """One kernel launch running ``phases`` over the whole (padded) batch.
+    ``state`` is the list of ``_STATE`` arrays, updated in place, or empty
+    for the "init" launch that creates it."""
     dtype = QPX.dtype
     Bp = QPX.shape[-1]
-    grid = (Bp // (sb * tile),)
     nbx = len(IDXBX)
     n_pairs = float(2 * N * nu + 2 * (N + 1) * nbx + 2 * (N + 1) * M)
-    LQX, LQU, LR, LRES, LAFF = _layouts(nx, nu, M, nbx, structure)
+    LQX, LQU, LR, LAFF = _layouts(nx, nu, M, nbx, structure)
+    dims = dict(nx=nx, nu=nu, M=M, nbx=nbx, LR=LR, LAFF=LAFF)
+    shapes = [(stages(N), width(dims)) for _, stages, width in _STATE]
 
-    nt = Bp // (sb * tile)
+    def spec(stages, width):
+        return pl.BlockSpec((stages, width, block), lambda b: (0, 0, b))
 
-    def pack(a):
-        """(stages, w, Bp) -> (nt, stages, pad8(w*sb), tile): scenario
-        b*(sb*tile) + si*tile + l lands at [b, k, w*sb + si, l]. The grid
-        dimension leads so each tile's QP data is one contiguous block the
-        kernel DMAs with a single ``.at[b]`` copy. The sublane dim is padded
-        to a multiple of 8: Mosaic faults (or hangs) on DMA/output blocks
-        whose sublane width is not a whole number of f32 (8, 128) tiles."""
-        stg, w, _ = a.shape
-        a = a.reshape(stg, w, nt, sb, tile)
-        a = jnp.transpose(a, (2, 0, 1, 3, 4)).reshape(nt, stg, w * sb, tile)
-        padw = _pad8(w * sb) - w * sb
-        if padw:
-            a = jnp.pad(a, ((0, 0), (0, 0), (0, padw), (0, 0)))
-        return a
-
-    def unpack(a, w):
-        """(nt, stages, pad8(w*sb), tile) -> (stages, w, Bp): inverse of
-        pack for the logical field width ``w`` (tail padding dropped)."""
-        _, stg, _, _ = a.shape
-        a = a[:, :, :w * sb].reshape(nt, stg, w, sb, tile)
-        return jnp.transpose(a, (1, 2, 0, 3, 4)).reshape(stg, w, Bp)
-
-    def ospec(stages, width):
-        return pl.BlockSpec((1, stages, _pad8(width * sb), tile),
-                            lambda b: (b, 0, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    def scr(stages, width):
-        return pltpu.VMEM((stages, _pad8(width * sb), tile), dtype)
-
+    state_specs = [spec(*sh) for sh in shapes]
     kernel = functools.partial(
-        _ip_solve_kernel, nx, nu, N, M, nbx, iters, su, sb, reg, tau, tol,
-        stat_tol, sigma_max, n_pairs, structure, LQX, LQU, LR, LRES, LAFF)
-
-    # Explicit HBM (not ANY): under ANY, XLA may decide to place a small
-    # output buffer in VMEM when the consumer pattern suits it (observed
-    # inside a scan that only slices du), which lands on top of the
-    # kernel's ~14.4 MB scratch and OOMs scoped VMEM at sublane_batch=8.
-    hbm_spec = pl.BlockSpec(memory_space=pltpu.HBM)
-    in_specs = [hbm_spec, hbm_spec,
-                pl.BlockSpec((1, 1, _pad8(nx * sb), tile),
-                             lambda b: (b, 0, 0, 0),
-                             memory_space=pltpu.VMEM)]
-    out_specs = (hbm_spec, hbm_spec, hbm_spec, ospec(1, 1), ospec(1, 1))
-    out_shape = (
-        jax.ShapeDtypeStruct((nt, N + 1, _pad8(nx * sb), tile), dtype),
-        jax.ShapeDtypeStruct((nt, N, _pad8(nu * sb), tile), dtype),
-        jax.ShapeDtypeStruct((nt, N + 1, _pad8(M * sb), tile), dtype),
-        jax.ShapeDtypeStruct((nt, 1, _pad8(sb), tile), dtype),
-        jax.ShapeDtypeStruct((nt, 1, _pad8(sb), tile), dtype))
-    state_scratch = [
-        scr(N + 1, nx), scr(N, nu), scr(N + 1, M), scr(N, nx),     # dx du s nu
-        scr(N, nu), scr(N, nu), scr(N, nu), scr(N, nu),            # u pairs
-        scr(N + 1, nbx), scr(N + 1, nbx), scr(N + 1, nbx), scr(N + 1, nbx),
-        scr(N + 1, M), scr(N + 1, M), scr(N + 1, M),               # th lh ls
-    ]
-    work_scratch = [scr(N, LR.width), scr(N + 1, LRES.width),
-                    scr(N + 1, LAFF.width)]
-    dma_scratch = [scr(N + 1, LQX.width), scr(N, LQU.width),
-                   pltpu.SemaphoreType.DMA, pltpu.SemaphoreType.DMA,
-                   pltpu.SemaphoreType.DMA]
-    outs = pl.pallas_call(
+        _ip_kernel, phases, nx, nu, N, M, nbx, reg, tau, tol, stat_tol,
+        sigma_max, n_pairs, structure, LQX, LQU, LR, LAFF)
+    return pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=dma_scratch + state_scratch + work_scratch,
-        # Raise Mosaic's scoped-VMEM accounting limit above the 16 MiB flag
-        # default: at sublane_batch=8 the kernel's ~14.4 MB scratch is fine
-        # on its own, but XLA's memory assignment sometimes ALSO places a
-        # small kernel output (e.g. du, 2.6 MB) in VMEM when the consumer
-        # pattern suits it, and the combined scoped accounting then trips
-        # the default limit at compile time even though the placement fits.
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=vmem_limit_bytes or 24 * 2**20)
-        if not interpret else None,
+        grid=(Bp // block,),
+        in_specs=([spec(N + 1, LQX.width), spec(N, LQU.width), spec(1, nx)]
+                  + (state_specs if state else [])),
+        out_specs=state_specs,
+        out_shape=[jax.ShapeDtypeStruct((*sh, Bp), dtype) for sh in shapes],
+        input_output_aliases=(
+            {3 + i: i for i in range(len(shapes))} if state else {}),
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-    )(pack(QPX), pack(QPU), pack(DX0))
-    widths = (nx, nu, M, 1, 1)
-    return tuple(unpack(a, w) for a, w in zip(outs, widths))
+        name="ip_" + "_".join(phases),
+    )(QPX, QPU, DX0, *state)
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "nx", "nu", "N", "M", "iters", "block", "num_warps", "reg", "tau", "tol",
+    "stat_tol", "sigma_max", "structure", "interpret", "launches"))
+def _ip_solve_batchlast(QPX, QPU, DX0, nx, nu, N, M, iters, block, num_warps,
+                        reg, tau, tol, stat_tol, sigma_max,
+                        structure=GENERIC_STRUCTURE, interpret=False,
+                        launches=_LAUNCHES):
+    """Run the solve on batch-last packed QP data; the batch (last) axis
+    must be a multiple of ``block``. One launch initializes the state, then
+    ``iters`` iterations of ``launches``. Returns (dx, du, s, mu, stat),
+    each batch-last."""
+    if QPX.shape[-1] % block:
+        raise ValueError(
+            f"batch {QPX.shape[-1]} is not a multiple of block {block}")
+    launch = functools.partial(
+        _launch, QPX=QPX, QPU=QPU, DX0=DX0, nx=nx, nu=nu, N=N, M=M,
+        block=block, num_warps=num_warps, reg=reg, tau=tau, tol=tol,
+        stat_tol=stat_tol, sigma_max=sigma_max, structure=structure,
+        interpret=interpret)
+
+    def iteration(_, state):
+        for phases in launches:
+            state = launch(phases, state=state)
+        return state
+
+    state = launch(("init",), state=[])
+    state = jax.lax.fori_loop(0, iters, iteration, state)
+    dx, du, s = state[:3]
+    sc = state[-1]
+    return dx, du, s, sc[:, 0:1], sc[:, 1:2]
 
 
 def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
                        reg: float | None = None, tol: float | None = None,
-                       normalize: bool = True, tile: int = 128,
-                       stage_unroll: int | None = None,
-                       sublane_batch: int | None = None,
+                       normalize: bool = True,
                        structure: QpStructure | None = None,
-                       interpret: bool = False,
-                       vmem_limit_bytes: int | None = None):
-    """Fully-fused interior-point solve. ``qp`` has one leading batch axis.
+                       interpret: bool = False):
+    """Whole interior-point solve in one kernel. ``qp`` has one leading
+    batch axis.
 
     Returns an ``ops.ip_qp.IpSolution``. The math matches ``solve_ocp_qp``
     (same initialization, eliminations and safeguards); only the execution
-    strategy differs: the entire solve — init plus all ``iters`` Mehrotra
-    iterations — runs in ONE Pallas launch per batch tile, batch-last layout
-    throughout, state resident in VMEM, factorization shared between
-    predictor and corrector. ``sublane_batch`` packs that many batch rows
-    into the sublane axis (VPU utilization x sb at VMEM x sb); auto-selected
-    to the largest factor that fits VMEM.
+    strategy differs: each Mehrotra iteration is a few kernel launches
+    (``_LAUNCHES``), one program per block of ``_BLOCK`` scenarios, with
+    the factorization shared between predictor and corrector. The batch is
+    padded to a multiple of ``_BLOCK``; the padding rows are dropped.
 
     ``structure`` declares static structure of the QP data (diagonal Q/R,
     zero S, sparse C/A columns, Zl == zl); structurally-trivial entries are
     neither packed nor computed with. The CALLER asserts the declaration —
     wrong declarations silently solve a different QP
     (``tests/test_ip_pallas.py`` pins ``sqp_rti.UNICYCLE_QP_STRUCTURE``).
+
+    ``interpret=True`` runs the kernel through the Pallas interpreter (the
+    CPU tests); otherwise it compiles through Triton for the GPU.
     """
     from doa_mpc_tpu.ops.ip_qp import IpSolution
 
@@ -1219,83 +1109,17 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     nx, nu = qp.A.shape[-1], qp.B.shape[-1]
     N = qp.A.shape[-3]
     M = qp.C.shape[-2]
-    nbx = len(IDXBX)
-
-    budget = 14.5 * 2**20
-    if sublane_batch is None:
-        sublane_batch = 1
-        for cand in (8, 4, 2):
-            if fused_vmem_bytes(N, M, nx, nu, nbx, tile, cand,
-                                structure=structure) <= budget:
-                sublane_batch = cand
-                break
-    if stage_unroll is None:
-        # Measured on v5e: unroll 4 is fastest with VMEM headroom but
-        # degrades ~20x once the footprint nears the 16 MB budget; unroll 2
-        # stays fast everywhere. Odd factors hit a Mosaic vectorization
-        # cliff at any size — keep to {2, 4}.
-        stage_unroll = 4 if fused_vmem_bytes(
-            N, M, nx, nu, nbx, tile, sublane_batch,
-            structure=structure) <= 7 * 2**20 else 2
 
     if normalize:
         qp, kappa = normalize_cost(qp)
     else:
         kappa = jnp.ones((Bt,), dtype)
 
-    blk = sublane_batch * tile
-    pad = _round_up(max(Bt, blk), blk) - Bt
-
-    def prep(arr, flat, stages):
-        a = arr.reshape(arr.shape[:2] + (flat,))
-        a = jnp.moveaxis(a, 0, -1)
-        if pad:
-            a = jnp.pad(a, ((0, 0), (0, 0), (0, pad)), constant_values=1.0)
-        if a.shape[0] < stages:           # N-stage fields -> N+1 with zeros
-            a = jnp.pad(a, ((0, stages - a.shape[0]), (0, 0), (0, 0)))
-        return a
-
-    st = N + 1
-    diag = lambda a: jnp.diagonal(a, axis1=-2, axis2=-1)
-    # field order must match _layouts: (N+1)-stage cost/constraint array...
-    xfields = [prep(diag(qp.Q), nx, st) if structure.q_diag
-               else prep(qp.Q, nx * nx, st),
-               prep(qp.q, nx, st)]
-    if structure.c_cols is not None:
-        ncc = len(structure.c_cols)
-        xfields.append(prep(qp.C[..., list(structure.c_cols)], M * ncc, st))
-    else:
-        xfields.append(prep(qp.C, M * nx, st))
-    xfields += [prep(qp.hval, M, st), prep(qp.zl, M, st)]
-    if not structure.zl_eq_zl2:
-        xfields.append(prep(qp.Zl, M, st))
-    xfields += [prep(qp.lb_x, nbx, st), prep(qp.ub_x, nbx, st)]
-    QPX = jnp.concatenate(xfields, axis=1)
-
-    # ... N-stage dynamics/control array ...
-    if structure.a_unit_cols:
-        kept = [j for j in range(nx) if j not in structure.a_unit_cols]
-        ufields = [prep(qp.A[..., kept], nx * len(kept), N)]
-    else:
-        ufields = [prep(qp.A, nx * nx, N)]
-    ufields += [prep(qp.B, nx * nu, N), prep(qp.c, nx, N),
-                prep(diag(qp.R), nu, N) if structure.r_diag
-                else prep(qp.R, nu * nu, N)]
-    if not structure.s_zero:
-        ufields.append(prep(qp.S, nu * nx, N))
-    ufields += [prep(qp.r, nu, N),
-                prep(qp.lb_u, nu, N), prep(qp.ub_u, nu, N)]
-    QPU = jnp.concatenate(ufields, axis=1)
-
-    # ... and dx0 as its own single-stage input.
-    DX0 = prep(qp.dx0[:, None, :], nx, 1)
-
+    QPX, QPU, DX0 = pack_qp(qp, structure, _BLOCK)
     dx, du, s, mu, stat = _ip_solve_batchlast(
-        QPX, QPU, DX0, nx=nx, nu=nu, N=N, M=M, iters=iters, su=stage_unroll,
-        sb=sublane_batch, tile=tile, reg=reg,
-        tau=tau, tol=tol, stat_tol=stat_tol, sigma_max=sigma_max,
-        structure=structure, interpret=interpret,
-        vmem_limit_bytes=vmem_limit_bytes)
+        QPX, QPU, DX0, nx=nx, nu=nu, N=N, M=M, iters=iters, block=_BLOCK,
+        num_warps=_NUM_WARPS, reg=reg, tau=tau, tol=tol, stat_tol=stat_tol,
+        sigma_max=sigma_max, structure=structure, interpret=interpret)
 
     def unprep(a):
         return jnp.moveaxis(a, -1, 0)[:Bt]
@@ -1303,3 +1127,60 @@ def solve_ocp_qp_fused(qp: OcpQp, iters: int = 50, tau: float = 0.99,
     return IpSolution(dx=unprep(dx), du=unprep(du), s=unprep(s),
                       mu=unprep(mu)[:, 0, 0], kappa=kappa,
                       stat_res=unprep(stat)[:, 0, 0])
+
+
+def pack_qp(qp: OcpQp, structure: QpStructure, block: int):
+    """Pack batched QP data into the kernel's batch-last arrays.
+
+    Returns ``(QPX, QPU, DX0)`` of shapes ``(N+1, LQX.width, Bp)``,
+    ``(N, LQU.width, Bp)`` and ``(1, nx, Bp)``, with the batch padded to
+    ``Bp``, the next multiple of ``block``. Padding rows hold the constant
+    1.0 (a well-posed dummy QP) and are dropped by the caller.
+    """
+    Bt = qp.A.shape[0]
+    nx, nu = qp.A.shape[-1], qp.B.shape[-1]
+    N = qp.A.shape[-3]
+    M = qp.C.shape[-2]
+    nbx = len(IDXBX)
+    pad = -Bt % block
+
+    def prep(arr, flat):
+        a = arr.reshape(arr.shape[:2] + (flat,))
+        a = jnp.moveaxis(a, 0, -1)
+        if pad:
+            a = jnp.pad(a, ((0, 0), (0, 0), (0, pad)), constant_values=1.0)
+        return a
+
+    diag = lambda a: jnp.diagonal(a, axis1=-2, axis2=-1)
+    # field order must match _layouts: (N+1)-stage cost/constraint array...
+    xfields = [prep(diag(qp.Q), nx) if structure.q_diag
+               else prep(qp.Q, nx * nx),
+               prep(qp.q, nx)]
+    if structure.c_cols is not None:
+        ncc = len(structure.c_cols)
+        xfields.append(prep(qp.C[..., list(structure.c_cols)], M * ncc))
+    else:
+        xfields.append(prep(qp.C, M * nx))
+    xfields += [prep(qp.hval, M), prep(qp.zl, M)]
+    if not structure.zl_eq_zl2:
+        xfields.append(prep(qp.Zl, M))
+    xfields += [prep(qp.lb_x, nbx), prep(qp.ub_x, nbx)]
+    QPX = jnp.concatenate(xfields, axis=1)
+
+    # ... N-stage dynamics/control array ...
+    if structure.a_unit_cols:
+        kept = [j for j in range(nx) if j not in structure.a_unit_cols]
+        ufields = [prep(qp.A[..., kept], nx * len(kept))]
+    else:
+        ufields = [prep(qp.A, nx * nx)]
+    ufields += [prep(qp.B, nx * nu), prep(qp.c, nx),
+                prep(diag(qp.R), nu) if structure.r_diag
+                else prep(qp.R, nu * nu)]
+    if not structure.s_zero:
+        ufields.append(prep(qp.S, nu * nx))
+    ufields += [prep(qp.r, nu), prep(qp.lb_u, nu), prep(qp.ub_u, nu)]
+    QPU = jnp.concatenate(ufields, axis=1)
+
+    # ... and dx0 as its own single-stage input.
+    DX0 = prep(qp.dx0[:, None, :], nx)
+    return QPX, QPU, DX0

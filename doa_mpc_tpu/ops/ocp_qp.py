@@ -80,8 +80,8 @@ def normalize_cost(qp: OcpQp) -> tuple[OcpQp, jnp.ndarray]:
 
     The reference's distance-scaled slack penalties reach ~1e6
     (``robot_ocp_problem.py:146``: 1e4 * (dist^2 + 50)) while R has entries
-    0.15 — a 1e7 spread that is hostile to f32 interior-point iterations on
-    TPU. Scaling the whole objective by a positive scalar leaves the primal
+    0.15 — a 1e7 spread that is hostile to f32 interior-point iterations.
+    Scaling the whole objective by a positive scalar leaves the primal
     minimizer unchanged (duals scale by kappa). Returns the scaled QP and
     kappa.
     """

@@ -49,7 +49,7 @@ def riccati_factorize(Q, R, S, A, B, reg: float = 0.0) -> RiccatiFactors:
 
     Args (single scenario): Q (N+1, nx, nx), R (N, nu, nu), S (N, nu, nx),
     A (N, nx, nx), B (N, nx, nu). ``reg`` is a static jitter added to Huu
-    before the Cholesky (f32 robustness on TPU).
+    before the Cholesky (f32 robustness).
     """
     nu = R.shape[-1]
     eye_u = jnp.eye(nu, dtype=R.dtype)

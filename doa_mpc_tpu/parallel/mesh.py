@@ -5,7 +5,9 @@ The reference runs its 100-seed Monte-Carlo serially in one process
 re-executing itself via ``os.system`` (``run_multiple_experiments.py:21``).
 Here the scenario axis is a sharded batch dimension:
 
-- one 1-D mesh axis ``"data"`` (ICI within a slice, DCN across hosts),
+- one 1-D mesh axis ``"data"`` over the devices (the four GPUs of one host
+  are joined all to all by NVLink, so the mesh follows the algorithm, not
+  the wiring; across hosts the same axis spans the network),
 - scenario batches live sharded across it (`NamedSharding(P("data"))`),
 - the whole closed-loop rollout runs under ``shard_map``; each device scans
   its local scenarios in lockstep,
@@ -15,7 +17,8 @@ Here the scenario axis is a sharded batch dimension:
 
 Per-problem tensor parallelism is pointless at nx=5 (SURVEY.md section 2.3);
 all parallelism is batch. The same code path drives 8 virtual CPU devices in
-tests and a TPU pod slice in production — only the mesh differs.
+tests and the GPUs of one or more hosts in production — only the mesh
+differs.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def make_sharded_rollout(batched_rollout, mesh: Mesh):
 
     ``batched_rollout`` operates on a batch of scenarios (e.g.
     ``sim.closed_loop.make_batched_rollout`` — which may use the fused
-    Pallas QP backend — or ``jax.vmap`` of a single-scenario rollout).
+    GPU QP kernel — or ``jax.vmap`` of a single-scenario rollout).
     Each device runs it on its local scenario shard.
 
     Returns ``fn(batched_state) -> (final_state, global_stats)`` where

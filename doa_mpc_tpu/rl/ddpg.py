@@ -3,7 +3,7 @@
 The reference ships a DDPG *training loop* whose agent/env imports do not
 exist in the repo (``/root/reference/src/train.py:3-7`` imports
 ``gym_examples...GridWorld`` and ``agent.ddpg_agent.DDPG`` — both missing;
-SURVEY.md C12). This module supplies the working TPU-native agent the loop
+SURVEY.md C12). This module supplies the working JAX agent the loop
 was written for: actor/critic MLPs with the reference's [128, 128] hidden
 layout (``train.py:27, 44-45``), target networks with polyak averaging,
 a device-resident uniform replay buffer, and a fully jitted update step.
@@ -20,7 +20,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 import optax
 
 
@@ -39,33 +38,56 @@ class DDPGConfig:
     noise_std: float = 0.1
 
 
-class _MLP(nn.Module):
-    hidden: tuple
-    out_dim: int
+class _MLP:
+    """ReLU MLP with Dense layers initialized like ``flax.linen.Dense``
+    (LeCun-normal weights, zero biases). Parameters are a list of
+    ``{"w", "b"}`` dicts, one per layer."""
 
-    @nn.compact
-    def __call__(self, x):
-        for h in self.hidden:
-            x = nn.relu(nn.Dense(h)(x))
-        return nn.Dense(self.out_dim)(x)
+    def __init__(self, hidden: tuple, out_dim: int):
+        self.sizes = tuple(hidden) + (out_dim,)
+
+    def init(self, key, n_in: int, dtype=jnp.float32):
+        params = []
+        init_w = jax.nn.initializers.lecun_normal()
+        for key, n_out in zip(jax.random.split(key, len(self.sizes)),
+                              self.sizes):
+            params.append({"w": init_w(key, (n_in, n_out), dtype),
+                           "b": jnp.zeros((n_out,), dtype)})
+            n_in = n_out
+        return params
+
+    def apply(self, params, x):
+        for layer in params[:-1]:
+            x = jax.nn.relu(x @ layer["w"] + layer["b"])
+        return x @ params[-1]["w"] + params[-1]["b"]
 
 
-class Actor(nn.Module):
-    cfg: DDPGConfig
+class Actor:
+    """Deterministic policy: obs -> act_limit * tanh(MLP(obs))."""
 
-    @nn.compact
-    def __call__(self, obs):
-        a = _MLP(self.cfg.hidden, self.cfg.act_dim)(obs)
-        return self.cfg.act_limit * jnp.tanh(a)
+    def __init__(self, cfg: DDPGConfig):
+        self.cfg = cfg
+        self.mlp = _MLP(cfg.hidden, cfg.act_dim)
+
+    def init(self, key, obs):
+        return self.mlp.init(key, obs.shape[-1], obs.dtype)
+
+    def apply(self, params, obs):
+        return self.cfg.act_limit * jnp.tanh(self.mlp.apply(params, obs))
 
 
-class Critic(nn.Module):
-    cfg: DDPGConfig
+class Critic:
+    """Action value: (obs, act) -> MLP([obs, act])."""
 
-    @nn.compact
-    def __call__(self, obs, act):
+    def __init__(self, cfg: DDPGConfig):
+        self.mlp = _MLP(cfg.hidden, 1)
+
+    def init(self, key, obs, act):
+        return self.mlp.init(key, obs.shape[-1] + act.shape[-1], obs.dtype)
+
+    def apply(self, params, obs, act):
         x = jnp.concatenate([obs, act], axis=-1)
-        return _MLP(self.cfg.hidden, 1)(x)[..., 0]
+        return self.mlp.apply(params, x)[..., 0]
 
 
 class Transition(NamedTuple):
@@ -115,10 +137,10 @@ class ReplayBuffer(NamedTuple):
 
 
 class AgentState(NamedTuple):
-    actor: dict
-    critic: dict
-    actor_t: dict
-    critic_t: dict
+    actor: list
+    critic: list
+    actor_t: list
+    critic_t: list
     opt_a: optax.OptState
     opt_c: optax.OptState
 

@@ -14,7 +14,7 @@ then draws, in this exact order:
 
 This module regenerates those streams on the host with
 ``np.random.RandomState(seed)`` — the same MT19937 + legacy
-uniform/gauss transforms — so a TPU rollout can consume the *identical*
+uniform/gauss transforms — so a device rollout can consume the *identical*
 obstacle worlds and noise realizations seed-for-seed. numpy's legacy
 gaussian cache lives in the RandomState, so drawing ``normal(size=(T, M, 2))``
 in one call yields the same C-ordered sequence as the reference's per-tick

@@ -52,8 +52,8 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
 
     Start/goal mirror experiments.py:20: start (X_MIN+1, Y_MIN+1, pi/4, 0, 0),
     goal (X_MAX-1, Y_MAX-1). Returns a (n_runs, 6) metrics array in the
-    reference CSV column order. ``backend='pallas'`` uses the fused TPU
-    Riccati kernel inside the QP solves.
+    reference CSV column order. ``backend`` names the QP solver
+    (``sim.closed_loop.BACKENDS``).
 
     ``compat_rng`` replays the reference's exact MT19937 streams: row i
     uses the worlds and per-tick obstacle noise that ``np.random.seed(i)``
@@ -162,7 +162,7 @@ def run_experiment(spec: WorldSpec | None = None,
         data = run_scenario_batch(spec, opts, s, n_runs=n_runs,
                                   max_iter=max_iter, dtype=dtype, mesh=mesh,
                                   backend=backend, compat_rng=compat_rng)
-        stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        stamp = _unique_stamp(out_dir)
         csv_path = os.path.join(out_dir, f"{stamp}_experiment_data.csv")
         if write:
             np.savetxt(csv_path, data, delimiter=";")
@@ -198,6 +198,19 @@ def run_experiment(spec: WorldSpec | None = None,
                   f"oob={data[:, 5].mean():.2%} "
                   f"median_steps={np.median(data[:, 4]):.0f}")
     return results
+
+
+def _unique_stamp(out_dir: str) -> str:
+    """The reference's ``%Y%m%d_%H%M%S`` file prefix, suffixed ``_1``,
+    ``_2``... when a run that finished within the same second already
+    holds it (a scenario batch can take less than a second on a GPU)."""
+    base = stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    n = 0
+    while os.path.exists(os.path.join(out_dir,
+                                      f"{stamp}_experiment_data.csv")):
+        n += 1
+        stamp = f"{base}_{n}"
+    return stamp
 
 
 def run_horizon_sweep(tf_values: Iterable[float] = (0.5, 1, 1.5, 2, 2.5, 3),

@@ -26,8 +26,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
-
 from doa_mpc_tpu.config import SolverOptions, WorldSpec
 from doa_mpc_tpu.parallel.distributed import initialize, is_host0
 from doa_mpc_tpu.parallel.mesh import make_data_mesh

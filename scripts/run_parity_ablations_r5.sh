@@ -1,8 +1,7 @@
 #!/bin/bash
-# Round-5 collision-gap forensics (VERDICT r4 item 1): seed-matched parity
-# matrix across formulation variants, serialized on the single TPU.
+# Collision-gap forensics: seed-matched parity matrix across formulation
+# variants, run one after another on one device. Run from the repo root.
 set -x
-cd /root/repo
 P=python
 $P scripts/parity_seedmatch.py --out results/parity_r5/v0_baseline \
     2>&1 | tail -12

@@ -127,7 +127,7 @@ def test_sensitivities_via_jacfwd():
 
 
 def test_f32_accuracy_sufficient():
-    # Production path runs f32 on TPU; one tick must stay ~1e-5 of f64.
+    # Production path runs f32 on the GPU; one tick must stay ~1e-5 of f64.
     x0 = jnp.array([0.5, -0.2, 1.1, 2.0, 0.3])
     u = jnp.array([0.7, -0.4])
     got32 = irk_step(dynamics, x0.astype(jnp.float32), u.astype(jnp.float32), 0.1)

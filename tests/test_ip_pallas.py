@@ -1,13 +1,8 @@
-"""Fused whole-solve IP kernel vs the batch-native XLA solver.
+"""Fused interior-point kernel (Pallas, Triton route) vs the XLA solver.
 
-The interpreter-mode run of this kernel is slow on CPU (every scratch access
-becomes an interpreted op), so the equivalence test is gated behind
-RUN_SLOW_TESTS=1. The kernel's correctness is additionally covered by:
-(a) TPU-side A/B runs against the per-iteration fused kernel it replaced
-(max |dx| diff 7e-8 at 1 iteration, identical final mu at 20 iterations),
-(b) identical results across stage_unroll factors on TPU (bitwise: max
-|dx| diff 0.0), and (c) the fused-backend closed-loop quality runs in
-results/.
+On the CPU the kernel runs through the Pallas interpreter, at tiny sizes.
+What only the GPU can show (that Triton compiles it, and its numbers at
+real sizes) is the ``gpu``-marked test here and ``chip_smoke.py``.
 
 Tolerance note: the fused kernel and the XLA solver produce slightly
 different *iterates* (~1e-4 after one iteration) because the
@@ -19,15 +14,10 @@ paths converge to the same KKT point (same mu, matching primals) — the
 multi-iteration check below asserts that.
 """
 
-import os
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-
-slow = pytest.mark.skipif(os.environ.get("RUN_SLOW_TESTS") != "1",
-                          reason="interpret-mode fused kernel is slow")
 
 
 def _batched(n_qp=4, **kw):
@@ -38,7 +28,6 @@ def _batched(n_qp=4, **kw):
     return jax.tree.map(lambda *xs: jnp.stack(xs).astype(jnp.float32), *qps)
 
 
-@slow
 def test_fused_iteration_matches_xla_interpret():
     from doa_mpc_tpu.ops.ip_qp import solve_ocp_qp
     from doa_mpc_tpu.ops.ip_pallas import solve_ocp_qp_fused
@@ -55,7 +44,6 @@ def test_fused_iteration_matches_xla_interpret():
                                rtol=1e-6)
 
 
-@slow
 def test_fused_converges_to_same_solution_interpret():
     from doa_mpc_tpu.ops.ip_qp import solve_ocp_qp
     from doa_mpc_tpu.ops.ip_pallas import solve_ocp_qp_fused
@@ -70,43 +58,94 @@ def test_fused_converges_to_same_solution_interpret():
                                atol=2e-3)
 
 
-def test_fused_block_sublane_widths_are_tile_aligned():
-    """Every DMA'd / output / scratch sublane width must be a multiple of 8.
+def test_pack_qp_pads_batch_to_block():
+    """The wrapper pads the batch to a multiple of the block with the
+    constant 1.0 and keeps the real rows in place."""
+    from doa_mpc_tpu.ops.ip_pallas import GENERIC_STRUCTURE, _layouts, pack_qp
 
-    The Mosaic toolchain faults the TPU worker (or hangs it) when a manual
-    DMA target or an output block has a sublane width that is not a whole
-    number of f32 (8, 128) tiles — this killed the round-1 bench. Trace the
-    wrapper and assert the invariant on the lowered pallas_call shapes.
-    """
-    from doa_mpc_tpu.ops import ip_pallas
+    qp = _batched(n_qp=5, N=3, M=2)
+    X, U, D = pack_qp(qp, GENERIC_STRUCTURE, block=4)
+    lx, lu, _, _ = _layouts(5, 2, 2, 4, GENERIC_STRUCTURE)
+    assert X.shape == (4, lx.width, 8)
+    assert U.shape == (3, lu.width, 8)
+    assert D.shape == (1, 5, 8)
+    for a in (X, U, D):
+        np.testing.assert_array_equal(np.asarray(a[..., 5:]), 1.0)
+    X4, _, _ = pack_qp(jax.tree.map(lambda a: a[:4], qp), GENERIC_STRUCTURE,
+                       block=4)
+    assert X4.shape[-1] == 4                  # already a multiple: no pad
+    np.testing.assert_array_equal(np.asarray(X4), np.asarray(X[..., :4]))
 
-    recorded = []
-    orig = ip_pallas.pl.pallas_call
 
-    def spy(kernel, *, grid, in_specs, out_specs, out_shape, scratch_shapes,
-            **kw):
-        for s in out_shape:
-            recorded.append(("out", s.shape))
-        for s in scratch_shapes:
-            shape = getattr(s, "shape", None)
-            if shape is not None:
-                recorded.append(("scratch", tuple(shape)))
-        return orig(kernel, grid=grid, in_specs=in_specs,
-                    out_specs=out_specs, out_shape=out_shape,
-                    scratch_shapes=scratch_shapes, **kw)
+@pytest.mark.parametrize("structured", [False, True])
+def test_pack_qp_layout_round_trip(structured):
+    """Every packed field reads back, through the kernel's layout offsets,
+    as the QP entry it came from (structured packing keeps only the
+    entries the structure does not declare trivial)."""
+    from doa_mpc_tpu.ops.ip_pallas import GENERIC_STRUCTURE, _layouts, pack_qp
+    from doa_mpc_tpu.solver.sqp_rti import UNICYCLE_QP_STRUCTURE
 
-    batched = _batched(N=3, M=2, seed_scale=2.0)
-    ip_pallas.pl.pallas_call = spy
-    try:
-        jax.eval_shape(lambda qp: ip_pallas.solve_ocp_qp_fused(
-            qp, iters=1, interpret=True), batched)
-    finally:
-        ip_pallas.pl.pallas_call = orig
+    st = UNICYCLE_QP_STRUCTURE if structured else GENERIC_STRUCTURE
+    qp = _controller_qp(n_scen=3, N=4, M=2)
+    X, U, D = (np.asarray(a) for a in pack_qp(qp, st, block=8))
+    lx, lu, _, _ = _layouts(5, 2, 2, 4, st)
+    q = jax.tree.map(np.asarray, qp)
 
-    assert recorded, "pallas_call was never reached"
-    for kind, shape in recorded:
-        sublane = shape[-2]
-        assert sublane % 8 == 0, (kind, shape)
+    def field(arr, lay, name, n):
+        o = lay.o[name]
+        return np.moveaxis(arr[:, o:o + n, :3], -1, 0)   # (B, stages, n)
+
+    diag = lambda a: np.diagonal(a, axis1=-2, axis2=-1)
+    if structured:
+        np.testing.assert_array_equal(field(X, lx, "Q", 5), diag(q.Q))
+        np.testing.assert_array_equal(field(U, lu, "R", 2), diag(q.R))
+        np.testing.assert_array_equal(
+            field(X, lx, "C", 4), q.C[..., [0, 1]].reshape(3, 5, 4))
+        np.testing.assert_array_equal(
+            field(U, lu, "A", 15), q.A[..., [2, 3, 4]].reshape(3, 4, 15))
+        assert "S" not in lu.o and "Zl" not in lx.o
+    else:
+        np.testing.assert_array_equal(field(X, lx, "Q", 25),
+                                      q.Q.reshape(3, 5, 25))
+        np.testing.assert_array_equal(field(U, lu, "S", 10),
+                                      q.S.reshape(3, 4, 10))
+        np.testing.assert_array_equal(field(X, lx, "Zl", 2), q.Zl)
+    for name, src in (("q", q.q), ("h", q.hval), ("zl", q.zl),
+                      ("lbx", q.lb_x), ("ubx", q.ub_x)):
+        np.testing.assert_array_equal(field(X, lx, name, src.shape[-1]), src)
+    for name, src in (("B", q.B.reshape(3, 4, 10)), ("c", q.c),
+                      ("r", q.r), ("lbu", q.lb_u), ("ubu", q.ub_u)):
+        np.testing.assert_array_equal(field(U, lu, name, src.shape[-1]), src)
+    np.testing.assert_array_equal(D[0, :, :3].T, q.dx0)
+
+
+def test_fused_lowers_to_triton_for_cuda():
+    """Every primitive of the kernel has a Triton lowering: the solve
+    lowers for the CUDA platform (Triton IR in a custom call) without a
+    GPU present. Compiling that IR needs the card (the gpu test below)."""
+    from doa_mpc_tpu.ops.ip_pallas import solve_ocp_qp_fused
+    from doa_mpc_tpu.solver.sqp_rti import UNICYCLE_QP_STRUCTURE
+
+    qp = _controller_qp(n_scen=2, N=3, M=2)
+    lowered = jax.jit(lambda q: solve_ocp_qp_fused(
+        q, iters=2, structure=UNICYCLE_QP_STRUCTURE)).trace(qp).lower(
+            lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 5   # init + 4 per iteration
+
+
+@pytest.mark.gpu
+def test_fused_matches_xla_on_gpu(gpu):
+    """On the card: the compiled kernel against the XLA solver."""
+    from doa_mpc_tpu.ops.ip_pallas import solve_ocp_qp_fused
+    from doa_mpc_tpu.ops.ip_qp import solve_ocp_qp
+    from doa_mpc_tpu.solver.sqp_rti import UNICYCLE_QP_STRUCTURE
+
+    qp = jax.device_put(_controller_qp(n_scen=64, N=20, M=5), gpu)
+    fus = solve_ocp_qp_fused(qp, iters=20, structure=UNICYCLE_QP_STRUCTURE)
+    ref = solve_ocp_qp(qp, iters=20)
+    diff = np.abs(np.asarray(fus.du) - np.asarray(ref.du)).max(axis=(1, 2))
+    assert np.median(diff) < 1e-3
 
 
 def _controller_qp(n_scen=4, N=6, M=3):
@@ -158,13 +197,10 @@ def test_build_qp_satisfies_declared_unicycle_structure():
             np.broadcast_to(eye[:, j], qp.A.shape[:-1]))
 
 
-@slow
 def test_fused_structured_matches_generic_interpret():
     """Declaring the structure must not change the math: structured and
-    generic fused solves agree on controller-built QPs. (Kept tiny —
-    interpret mode costs minutes per solve; TPU-side A/B at the production
-    config showed bitwise-equal chained-solve checksums, see
-    scripts/tpu_qp_sweep.py.)"""
+    generic fused solves agree on controller-built QPs (kept tiny: the
+    interpreter compiles each variant for tens of seconds)."""
     from doa_mpc_tpu.ops.ip_pallas import solve_ocp_qp_fused
     from doa_mpc_tpu.solver.sqp_rti import UNICYCLE_QP_STRUCTURE
 
@@ -178,27 +214,3 @@ def test_fused_structured_matches_generic_interpret():
                                atol=1e-5)
     np.testing.assert_allclose(np.asarray(st.mu), np.asarray(gen.mu),
                                rtol=1e-5)
-
-
-def test_sublane_batch_autoselection_points():
-    """Pin the shipped auto-selection outcomes: the production N=20/M=5
-    problem must pick sublane_batch=8 (full VPU sublane occupancy — the
-    round-4 1.8x lever) and the long-horizon N=40/M=8 config must degrade
-    to sb=2 within the 14.5 MB budget. A kernel-layout edit that silently
-    changes either shows up here before it shows up as a throughput
-    regression on the chip (the bracketing of the estimate itself against
-    Mosaic's scoped accounting is tests/test_vmem_guard.py)."""
-    from doa_mpc_tpu.ops.ip_pallas import fused_vmem_bytes
-    from doa_mpc_tpu.solver.sqp_rti import UNICYCLE_QP_STRUCTURE
-
-    budget = 14.5 * 2**20
-
-    def auto_sb(N, M):
-        for cand in (8, 4, 2):
-            if fused_vmem_bytes(N, M, sb=cand,
-                                structure=UNICYCLE_QP_STRUCTURE) <= budget:
-                return cand
-        return 1
-
-    assert auto_sb(20, 5) == 8
-    assert auto_sb(40, 8) == 2

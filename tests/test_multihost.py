@@ -98,7 +98,7 @@ def test_cli_distributed_two_processes(tmp_path):
     for pid in range(2):
         env = _clean_env()
         env.update({
-            "DOA_MPC_PLATFORM": "cpu",
+            "JAX_PLATFORMS": "cpu",
             "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
             "JAX_COORDINATOR_ADDRESS": f"localhost:{port}",
             "JAX_NUM_PROCESSES": "2",

@@ -10,8 +10,13 @@ from doa_mpc_tpu.models.unicycle import dynamics
 from doa_mpc_tpu.ops.integrators import irk_step, rk4_step
 from doa_mpc_tpu.ops.riccati import riccati_factorize, riccati_solve
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native toolchain unavailable")
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    # Decided here, not at import: every xdist worker must collect the same
+    # tests, and the first call builds the library.
+    if not native.available():
+        pytest.skip("native toolchain unavailable")
 
 
 def test_native_riccati_matches_jax():

@@ -1,10 +1,11 @@
 """Profiling utilities: FLOP model sanity + timing helper."""
 
 import jax.numpy as jnp
+import pytest
 
 from doa_mpc_tpu.config import WorldSpec
 from doa_mpc_tpu.utils.profiling import (
-    speed_of_light_report, tick_flops, time_fn, Timer,
+    device_peaks, speed_of_light_report, tick_flops, time_fn, Timer,
 )
 
 
@@ -17,39 +18,57 @@ def test_tick_flops_scales():
     assert f3["per_scenario_flops"] > 1.8 * f1["per_scenario_flops"]
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
 def test_speed_of_light_report_fields():
     spec = WorldSpec(tf=2.0, n_solv=20)
-    # fused (production): HBM traffic is one QP read + one write per SOLVE
+    # fused: memory traffic is the kernel's one-time reads and writes
     rep = speed_of_light_report(spec, qp_iter=6, batch=4096,
-                                measured_tick_s=0.000935)
-    assert rep["achieved_tflops"] > 0
-    assert 0 < rep["mxu_sol_ratio"] < 1
-    assert 0 < rep["vpu_issue_ratio"] < 1
+                                measured_tick_s=1e-3, device_kind=H100)
+    assert rep["achieved_flops"] > 0
+    assert 0 < rep["roofline_share"] < 1
+    assert rep["bound"] in ("flops", "memory")
     assert rep["hbm_bound_tick_s"] > 0
+    assert rep["roofline_share"] == max(
+        rep["flop_bound_tick_s"], rep["hbm_bound_tick_s"]) / 1e-3
     # the fused kernel's traffic must NOT scale with qp_iter...
     rep2 = speed_of_light_report(spec, qp_iter=12, batch=4096,
-                                 measured_tick_s=0.000935)
+                                 measured_tick_s=1e-3, device_kind=H100)
     assert rep2["hbm_bytes"] == rep["hbm_bytes"]
-    # ...while the legacy XLA path re-reads per iteration
+    # ...while the XLA path re-reads per iteration
     repx = speed_of_light_report(spec, qp_iter=6, batch=4096,
-                                 measured_tick_s=0.000935, backend="xla")
+                                 measured_tick_s=1e-3, device_kind=H100,
+                                 backend="xla")
     repx2 = speed_of_light_report(spec, qp_iter=12, batch=4096,
-                                  measured_tick_s=0.000935, backend="xla")
+                                  measured_tick_s=1e-3, device_kind=H100,
+                                  backend="xla")
     assert repx2["hbm_bytes"] == 2 * repx["hbm_bytes"]
-    assert repx["hbm_bytes"] > rep["hbm_bytes"]
+
+
+def test_peak_table_refuses_unknown_device():
+    assert device_peaks(H100)["hbm_bytes_per_s"] == 3.35e12
+    with pytest.raises(ValueError, match="no published peaks"):
+        device_peaks("Unknown Accelerator")
+    with pytest.raises(ValueError):
+        speed_of_light_report(WorldSpec(), qp_iter=6, batch=1,
+                              measured_tick_s=1e-3, device_kind="cpu")
 
 
 def test_fused_hbm_bytes_exact():
     """The fused-path byte count equals the packed-layout widths the
-    kernel actually DMAs (ops/ip_pallas._layouts), not a guess."""
+    kernel actually reads and writes (ops/ip_pallas._layouts), not a
+    guess."""
     from doa_mpc_tpu.ops.ip_pallas import _layouts
     from doa_mpc_tpu.solver.sqp_rti import UNICYCLE_QP_STRUCTURE
     from doa_mpc_tpu.utils.profiling import fused_hbm_bytes
 
     spec = WorldSpec(tf=2.0, n_solv=20)
-    qpx, qpu, _, _, _ = _layouts(5, 2, 5, 4, UNICYCLE_QP_STRUCTURE)
+    qpx, qpu, ric, aff = _layouts(5, 2, 5, 4, UNICYCLE_QP_STRUCTURE)
     per_scen = (21 * qpx.width + 20 * qpu.width + 5      # inputs
-                + 21 * 5 + 20 * 2 + 21 * 5 + 2)          # dx, du, s, mu/stat
+                + 21 * 5 + 20 * 2 + 21 * 5 + 2           # dx, du, s, mu/stat
+                + 20 * (5 + 4 * 2) + 21 * (4 * 4 + 3 * 5)  # IP state
+                + 20 * ric.width + 21 * (5 + aff.width))   # work arrays
     assert fused_hbm_bytes(spec, batch=7) == 7 * 4 * per_scen
 
 

@@ -1,19 +1,20 @@
 """Self-recovery of rows wedged by the non-finite direction guard.
 
-Background (ROUND3_NOTES / VERDICT r3): on the TPU, ~1/256 mid-rollout
-production QPs overflow the condensed f32 Riccati at the sigma_max=1e7
-barrier clamp under the TPU's reduction order (CPU f32 survives the same
-rows). The non-finite guard then freezes the row with UNCHANGED state, which
+Background: on an accelerator whose default f32 matmul used
+reduced-precision passes, ~1/256 mid-rollout production QPs overflowed the
+condensed f32 Riccati at the sigma_max=1e7 barrier clamp (CPU f32 survives
+the same rows). The non-finite guard then freezes the row with UNCHANGED state, which
 reproduces the overflow every subsequent iteration — a permanent wedge. The
 fix (``solve_ocp_qp(..., sigma_retry=...)``): a row that trips the guard
 permanently lowers its own per-row curvature clamp and resumes on the next
 iteration.
 
-The overflow itself is TPU-specific, so this file carries two layers:
+The overflow itself depends on the device's arithmetic, so this file carries
+two layers:
 
 - CPU tests that the retry path is quality-neutral on ordinary QPs and that
   the per-row cap machinery batches correctly;
-- a TPU-only regression on captured hard QPs
+- a regression on captured hard QPs
   (``tests/fixtures/hard_qps_f32.npz``, written by
   ``scripts/capture_hard_qps.py`` from real closed-loop rollouts): with
   retry the recorded rows must make interior-point progress where the
@@ -83,13 +84,12 @@ def test_recorded_hard_qps_recover():
     """The captured wedge QPs must make full IP progress.
 
     The fixture holds real closed-loop QPs that wedged the XLA f32 backend
-    on the TPU (mu stuck at its 1.0 initialization). Root cause: the TPU's
-    DEFAULT f32 matmul precision (truncated bf16 passes) overflows the
-    condensed Riccati — ``solve_ocp_qp`` now forces full-f32 matmuls, which
-    solves every recorded row (CPU f32 always did). The per-row
-    ``sigma_retry`` cap remains as a second-layer safety net. Runs on
-    whatever backend jax selects; strongest on TPU where the wedge was
-    observed.
+    (mu stuck at its 1.0 initialization) where the default f32 matmul
+    precision used reduced-precision passes, which overflow the condensed
+    Riccati — ``solve_ocp_qp`` now forces full-f32 matmuls, which solves
+    every recorded row (CPU f32 always did). The per-row ``sigma_retry``
+    cap remains as a second-layer safety net. Runs on whatever backend jax
+    selects.
     """
     data = np.load(FIXTURE)
     qp = OcpQp(*[jnp.asarray(data[f]) for f in OcpQp._fields])
