@@ -1,7 +1,7 @@
 """doa_mpc_tpu — a batched, GPU-accelerated dynamic-obstacle-avoidance nonlinear-MPC
 framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 abdelhakim96/Dynamic-Obstacle-Avoidance-MPC (reference mounted at
 /root/reference): closed-loop real-time-iteration (RTI) nonlinear MPC for a
 unicycle robot crossing a 16x16 grid world with moving circular obstacles.

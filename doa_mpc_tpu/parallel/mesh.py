@@ -55,8 +55,8 @@ def make_sharded_rollout(batched_rollout, mesh: Mesh):
     """Wrap a *batched* rollout into a mesh-sharded run.
 
     ``batched_rollout`` operates on a batch of scenarios (e.g.
-    ``sim.closed_loop.make_batched_rollout`` — which may use the fused
-    GPU QP kernel — or ``jax.vmap`` of a single-scenario rollout).
+    ``sim.closed_loop.make_batched_rollout`` or ``jax.vmap`` of a
+    single-scenario rollout).
     Each device runs it on its local scenario shard.
 
     Returns ``fn(batched_state) -> (final_state, global_stats)`` where

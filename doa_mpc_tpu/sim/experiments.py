@@ -46,14 +46,13 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
                        seed: int = 0, dtype=jnp.float32,
                        params: CostParams | None = None,
                        mesh=None, start_goal_margin: float = 1.0,
-                       backend: str = "xla", return_state: bool = False,
+                       return_state: bool = False,
                        compat_rng: bool = False):
     """Run ``n_runs`` seeded scenarios in one batched rollout.
 
     Start/goal mirror experiments.py:20: start (X_MIN+1, Y_MIN+1, pi/4, 0, 0),
     goal (X_MAX-1, Y_MAX-1). Returns a (n_runs, 6) metrics array in the
-    reference CSV column order. ``backend`` names the QP solver
-    (``sim.closed_loop.BACKENDS``).
+    reference CSV column order.
 
     ``compat_rng`` replays the reference's exact MT19937 streams: row i
     uses the worlds and per-tick obstacle noise that ``np.random.seed(i)``
@@ -78,7 +77,7 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
         state = init_loop_state(jax.random.PRNGKey(seed), ctrl, start, goal,
                                 scenario, batch_shape=(n_runs,), obst=obst)
         rollout = make_batched_rollout(ctrl, goal, params, max_iter=max_iter,
-                                       backend=backend, use_noise_traj=True)
+                                       use_noise_traj=True)
         final = jax.jit(rollout)(state, jnp.asarray(noise))
         m = jax.vmap(metrics_of)(final)
         data = np.stack([
@@ -95,8 +94,7 @@ def run_scenario_batch(spec: WorldSpec, opts: SolverOptions, scenario: str,
 
     state = init_loop_state(jax.random.PRNGKey(seed), ctrl, start, goal,
                             scenario, batch_shape=(n_runs,))
-    rollout = make_batched_rollout(ctrl, goal, params, max_iter=max_iter,
-                                   backend=backend)
+    rollout = make_batched_rollout(ctrl, goal, params, max_iter=max_iter)
 
     if mesh is not None:
         from doa_mpc_tpu.parallel.mesh import (
@@ -145,7 +143,7 @@ def run_experiment(spec: WorldSpec | None = None,
                    n_runs: int = 100, max_iter: int = 400,
                    out_dir: str = "test_data/new",
                    dtype=jnp.float32, mesh=None, verbose: bool = True,
-                   backend: str = "xla", compat_rng: bool = False):
+                   compat_rng: bool = False):
     """The experiments.py:12-46 driver: per scenario, run the seeded batch
     and persist CSV + spec JSON with the reference's naming convention."""
     spec = spec or WorldSpec()
@@ -161,7 +159,7 @@ def run_experiment(spec: WorldSpec | None = None,
                   f"M={spec.n_obst}, qp_iter={opts.qp_iter})")
         data = run_scenario_batch(spec, opts, s, n_runs=n_runs,
                                   max_iter=max_iter, dtype=dtype, mesh=mesh,
-                                  backend=backend, compat_rng=compat_rng)
+                                  compat_rng=compat_rng)
         stamp = _unique_stamp(out_dir)
         csv_path = os.path.join(out_dir, f"{stamp}_experiment_data.csv")
         if write:
@@ -181,7 +179,6 @@ def run_experiment(spec: WorldSpec | None = None,
             "compat_rng": compat_rng,
             "fail_mu_tol": opts.fail_mu_tol,
             "fail_stat_tol": opts.fail_stat_tol,
-            "backend": backend,
         }
         if opts.init_guess == "interpolate":
             # the two bundled interpolate runs add this key

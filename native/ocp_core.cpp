@@ -4,7 +4,7 @@
 // Role: the native runtime tier of the framework, mirroring what the
 // reference reaches through the acados C library (SQP-RTI + HPIPM + IRK,
 // /root/reference/src/simulation/robot_ocp_problem.py:126-136). The
-// accelerator path is JAX/Pallas; this library serves as
+// accelerator path is JAX/XLA; this library serves as
 //   (a) an independent f64 validation oracle for the JAX kernels
 //       (tests/test_native.py cross-checks them), and
 //   (b) a dependency-free single-scenario CPU runtime: ocp_ip_solve is the

@@ -5,9 +5,8 @@ sigma_max=1e7 clamp under reduced-precision reductions (about 1 in 256 on
 the accelerator where it was first seen) and persists them as a regression
 fixture for ``tests/test_sigma_retry.py::test_recorded_hard_qps_recover``.
 
-Method: roll the production closed loop (the platform's default backend
-keeps the trajectory realistic), and at every tick ALSO solve the same QP
-batch with the XLA backend with retry disabled. Rows whose final
+Method: roll the production closed loop, and at every tick ALSO solve the
+same QP batch with retry disabled. Rows whose final
 duality measure stays near mu0=1.0 after the full iteration budget are
 wedged; their QP data is appended to the fixture.
 
@@ -30,8 +29,7 @@ WEDGE_MU = 0.5
 from doa_mpc_tpu.config import SolverOptions, WorldSpec, default_cost_params
 from doa_mpc_tpu.ops.ip_qp import solve_ocp_qp
 from doa_mpc_tpu.ops.ocp_qp import OcpQp
-from doa_mpc_tpu.sim.closed_loop import (
-    init_loop_state, make_batched_tick, resolve_backend)
+from doa_mpc_tpu.sim.closed_loop import init_loop_state, make_batched_tick
 from doa_mpc_tpu.sim.obstacles import predict_trajectory, robot_start_goal
 from doa_mpc_tpu.solver.sqp_rti import make_rti_controller
 
@@ -45,8 +43,7 @@ start, goal = start.astype(dtype), goal.astype(dtype)
 st = init_loop_state(jax.random.PRNGKey(42), ctrl, start, goal, "RANDOM",
                      batch_shape=(B,))
 
-tick = jax.jit(make_batched_tick(ctrl, goal, params,
-                                 backend=resolve_backend()))
+tick = jax.jit(make_batched_tick(ctrl, goal, params))
 
 
 @jax.jit

@@ -42,7 +42,7 @@ opts = SolverOptions(qp_iter=4, integrator="rk4")
 mesh = make_data_mesh()
 
 data = run_scenario_batch(spec, opts, "RANDOM", n_runs=16, max_iter=6,
-                          mesh=mesh, backend="xla")
+                          mesh=mesh)
 if is_host0():
     np.savetxt(out_csv, data, delimiter=";")
     print("host0 wrote", out_csv, "rows", data.shape[0], flush=True)

@@ -121,7 +121,7 @@ def test_batched_tick_matches_vmapped_tick():
     st = init_loop_state(jax.random.PRNGKey(11), ctrl, start, goal, "RANDOM",
                          batch_shape=(B,))
     t_v = jax.jit(jax.vmap(make_tick(ctrl, goal, params)))
-    t_b = jax.jit(make_batched_tick(ctrl, goal, params, backend="xla"))
+    t_b = jax.jit(make_batched_tick(ctrl, goal, params))
     sv, sb = st, st
     for _ in range(3):
         sv = t_v(sv)

@@ -80,7 +80,7 @@ def test_rollout_consumes_noise_stream():
                           batch_shape=(len(seeds),), obst=obst)
     np.testing.assert_allclose(np.asarray(st0.obst.pos), obst.pos, rtol=1e-6)
     roll = jax.jit(make_batched_rollout(ctrl, goal, params, max_iter=ticks,
-                                        backend="xla", use_noise_traj=True))
+                                        use_noise_traj=True))
     f1 = roll(st0, jnp.asarray(noise))
     f2 = roll(st0, jnp.asarray(noise))
     np.testing.assert_array_equal(np.asarray(f1.x0), np.asarray(f2.x0))

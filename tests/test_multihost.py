@@ -106,7 +106,7 @@ def test_cli_distributed_two_processes(tmp_path):
         })
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "doa_mpc_tpu", "experiment",
-             "--distributed", "--backend", "xla", "--runs", "16",
+             "--distributed", "--runs", "16",
              "--max-iter", "6", "--tf", "0.5", "--n-solv", "5",
              "--n-obst", "3", "--qp-iter", "4",
              "--scenarios", "RANDOM", "--out", out_dir],

@@ -150,7 +150,7 @@ def test_native_closed_loop_oracle():
                                vel=jnp.asarray(vel)[None]))
         roll = jax.jit(make_batched_rollout(
             ctrl, goal, params, max_iter=T, random_move=use_noise,
-            backend="xla", collect=True, use_noise_traj=True))
+            collect=True, use_noise_traj=True))
         fin, (xs, _) = roll(
             st0, jnp.asarray(noise)[:, None] if use_noise else None)
         xs = np.asarray(xs)[:, 0]

@@ -64,11 +64,10 @@ def test_sharded_state_layout():
     assert shard_counts == {8}
 
 
-def test_fused_kernel_under_shard_map_interpret():
-    """The GPU QP backend — the fused interior-point kernel — composes with
-    ``shard_map`` over the 8-device mesh: each device solves its own shard.
-    The Pallas interpreter stands in for the GPU compile here; the
-    four-GPU run is ``chip_smoke.py --four``."""
+def test_solver_under_shard_map_matches_unsharded():
+    """The batched f32 interior point composes with ``shard_map`` over the
+    8-device mesh: each device solves its own shard, and the rows equal the
+    unsharded solve (the four-GPU run is ``chip_smoke.py --four``)."""
     import os
     import sys
     from functools import partial
@@ -77,7 +76,6 @@ def test_fused_kernel_under_shard_map_interpret():
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from test_ip_qp import _make_qp
-    from doa_mpc_tpu.ops.ip_pallas import solve_ocp_qp_fused
     from doa_mpc_tpu.ops.ip_qp import solve_ocp_qp
 
     B = 16
@@ -91,9 +89,10 @@ def test_fused_kernel_under_shard_map_interpret():
     @partial(jax.shard_map, mesh=mesh, in_specs=(P("data"),),
              out_specs=P("data"), check_vma=False)
     def solve(q):
-        return solve_ocp_qp_fused(q, iters=2, interpret=True).du
+        return solve_ocp_qp(q, iters=2).du
 
     du = jax.jit(solve)(qp_sh)
+    assert len(du.addressable_shards) == 8
     ref = solve_ocp_qp(qp, iters=2)
-    np.testing.assert_allclose(np.asarray(du), np.asarray(ref.du, np.float32),
+    np.testing.assert_allclose(np.asarray(du), np.asarray(ref.du),
                                atol=5e-6)

@@ -23,7 +23,6 @@ H100 = "NVIDIA H100 80GB HBM3"
 
 def test_speed_of_light_report_fields():
     spec = WorldSpec(tf=2.0, n_solv=20)
-    # fused: memory traffic is the kernel's one-time reads and writes
     rep = speed_of_light_report(spec, qp_iter=6, batch=4096,
                                 measured_tick_s=1e-3, device_kind=H100)
     assert rep["achieved_flops"] > 0
@@ -32,18 +31,10 @@ def test_speed_of_light_report_fields():
     assert rep["hbm_bound_tick_s"] > 0
     assert rep["roofline_share"] == max(
         rep["flop_bound_tick_s"], rep["hbm_bound_tick_s"]) / 1e-3
-    # the fused kernel's traffic must NOT scale with qp_iter...
+    # the XLA interior point re-reads its QP data every iteration
     rep2 = speed_of_light_report(spec, qp_iter=12, batch=4096,
                                  measured_tick_s=1e-3, device_kind=H100)
-    assert rep2["hbm_bytes"] == rep["hbm_bytes"]
-    # ...while the XLA path re-reads per iteration
-    repx = speed_of_light_report(spec, qp_iter=6, batch=4096,
-                                 measured_tick_s=1e-3, device_kind=H100,
-                                 backend="xla")
-    repx2 = speed_of_light_report(spec, qp_iter=12, batch=4096,
-                                  measured_tick_s=1e-3, device_kind=H100,
-                                  backend="xla")
-    assert repx2["hbm_bytes"] == 2 * repx["hbm_bytes"]
+    assert rep2["hbm_bytes"] == 2 * rep["hbm_bytes"]
 
 
 def test_peak_table_refuses_unknown_device():
@@ -53,23 +44,6 @@ def test_peak_table_refuses_unknown_device():
     with pytest.raises(ValueError):
         speed_of_light_report(WorldSpec(), qp_iter=6, batch=1,
                               measured_tick_s=1e-3, device_kind="cpu")
-
-
-def test_fused_hbm_bytes_exact():
-    """The fused-path byte count equals the packed-layout widths the
-    kernel actually reads and writes (ops/ip_pallas._layouts), not a
-    guess."""
-    from doa_mpc_tpu.ops.ip_pallas import _layouts
-    from doa_mpc_tpu.solver.sqp_rti import UNICYCLE_QP_STRUCTURE
-    from doa_mpc_tpu.utils.profiling import fused_hbm_bytes
-
-    spec = WorldSpec(tf=2.0, n_solv=20)
-    qpx, qpu, ric, aff = _layouts(5, 2, 5, 4, UNICYCLE_QP_STRUCTURE)
-    per_scen = (21 * qpx.width + 20 * qpu.width + 5      # inputs
-                + 21 * 5 + 20 * 2 + 21 * 5 + 2           # dx, du, s, mu/stat
-                + 20 * (5 + 4 * 2) + 21 * (4 * 4 + 3 * 5)  # IP state
-                + 20 * ric.width + 21 * (5 + aff.width))   # work arrays
-    assert fused_hbm_bytes(spec, batch=7) == 7 * 4 * per_scen
 
 
 def test_time_fn_runs():
