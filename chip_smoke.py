@@ -65,7 +65,8 @@ def phase_device():
     from doa_mpc_tpu.utils.profiling import gpu_name_and_power_limit
 
     device = check_device()
-    log(f"[a] nvidia-smi name, power.limit: {gpu_name_and_power_limit()}")
+    log("[a] nvidia-smi --query-gpu=name,power.limit --format=csv,noheader:")
+    log(gpu_name_and_power_limit())
     log(f"[a] jax {device['jax']}, {device['count']} x {device['kind']}")
     return device
 
